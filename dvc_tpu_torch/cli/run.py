@@ -1,0 +1,232 @@
+"""CLI of the port: serve / convert / vocode.
+
+Same flags as dvc_tpu's commands (dvc_tpu/cli/run.py), plus ``--device
+{cuda,cpu}`` (default cuda; cuda without a card is an error).  A bare
+``--vocoder_ckpt`` selects the WaveNet vocoder (its sampler is the CUDA
+kernel on cuda); ``--vocoder none`` returns mels.  Griffin-Lim (dvc_tpu's
+default), the iSTFT vocoder and the other routes are not ported yet and exit
+with a message.
+
+Usage:
+  python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --log_dir <run> \\
+      --vocoder_ckpt <r9y9 .pth>
+  python -m dvc_tpu_torch.cli.run convert --dataset_fp <mel_dir> --log_dir <run> \\
+      --src_spk A --trg_spk B --vocoder_ckpt <r9y9 .pth>
+  python -m dvc_tpu_torch.cli.run vocode <mel.npy> --vocoder_ckpt <r9y9 .pth>
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+NOT_PORTED = "not yet ported — see ROADMAP.md"
+
+
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    """dvc_tpu's _add_train_args: the serving commands read the model
+    geometry from them; the training-only flags are accepted and unused."""
+    p.add_argument("--dataset_fp", required=True)
+    p.add_argument("--log_dir", default="./results")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--epochs", type=int, default=200_000)
+    p.add_argument("--latent-size", type=int, default=32)
+    p.add_argument("--speaker_size", type=int, default=4)
+    p.add_argument("--samples_length", type=int, default=None)
+    p.add_argument("--report-interval", type=int, default=50)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--mse_cof", type=float, default=10.0)
+    p.add_argument("--kl_cof", type=float, default=10.0)
+    p.add_argument("--style_cof", type=float, default=0.1)
+    p.add_argument("--beta_cof", type=float, default=0.1)
+    p.add_argument("--adv_cof", type=float, default=0.0)
+    p.add_argument("--adv_lr", type=float, default=1e-3)
+    p.add_argument("--adv_mode", default="confusion", choices=["confusion", "grl"])
+    p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                   help="training dtype; the port serves the VAE in float32")
+    p.add_argument("--checkpoint-format", default="msgpack", choices=["msgpack", "orbax"])
+    p.add_argument("--features", default="mel", choices=["mel", "mcc"])
+    p.add_argument("--num_mcep", type=int, default=36)
+    p.add_argument("--do-not-resume", action="store_true")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+
+def _add_fs_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--fs_mask", default="",
+                   help="feature_mask.npz from train-fs (or a bare .npy mask): "
+                        "FeatureSelection-masked latent swap")
+    p.add_argument("--fs_threshold", type=float, default=0.5)
+    p.add_argument("--fs_top_k", type=int, default=None)
+
+
+def _add_vocoder_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--vocoder_ckpt", default="",
+                   help="WaveNet checkpoint (r9y9 .pth); overrides the "
+                        "griffinlim default")
+    p.add_argument("--vocoder", default="griffinlim",
+                   choices=["none", "griffinlim", "istft"])
+    p.add_argument("--gl_iters", type=int, default=32)
+
+
+def _config_from_args(args):
+    from dvc_tpu_torch.config import Config, VAEConfig
+    if args.features == "mcc":
+        raise SystemExit(f"--features mcc (the WORLD route) is {NOT_PORTED}")
+    if args.samples_length is None:
+        args.samples_length = 64  # the reference's mel crop (train.py:53)
+    return Config(vae=VAEConfig(latent_dim=args.latent_size,
+                                speaker_size=args.speaker_size,
+                                frames=args.samples_length))
+
+
+def _load_model(args, cfg):
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.train.checkpoint import load_last_checkpoint
+    model = DisentangledVAE(cfg.vae)
+    epoch = load_last_checkpoint(os.path.join(args.log_dir, "checkpoints"), model)
+    print(f"loaded checkpoint at epoch {epoch}")
+    return model
+
+
+def _make_cli_vocoder(args):
+    """A bare --vocoder_ckpt is the WaveNet; none disables waveform output;
+    griffinlim and istft are not ported yet."""
+    if args.vocoder == "istft":
+        raise SystemExit(f"--vocoder istft is {NOT_PORTED}")
+    if args.vocoder_ckpt:
+        from dvc_tpu_torch.convert.vocode import make_vocoder
+        return make_vocoder(args.vocoder_ckpt, seed=0, device=args.device)
+    if args.vocoder == "griffinlim":
+        raise SystemExit(f"--vocoder griffinlim is {NOT_PORTED}; pass "
+                         "--vocoder_ckpt for the WaveNet or --vocoder none")
+    return None
+
+
+def _load_fs_mask(args, cfg):
+    """--fs_mask feature_mask.npz -> binary swap mask, or None."""
+    if not args.fs_mask:
+        return None
+    import numpy as np
+
+    from dvc_tpu_torch.convert.conversion import binarize_fs_mask
+    loaded = np.load(args.fs_mask)
+    raw = loaded["mask"] if hasattr(loaded, "files") else loaded
+    if raw.shape != (cfg.vae.latent_dim,):
+        raise SystemExit(f"--fs_mask shape {raw.shape} != latent_dim "
+                         f"({cfg.vae.latent_dim},) — was train-fs run on this model?")
+    fs_mask = binarize_fs_mask(raw, cfg.vae.speaker_size, args.fs_threshold,
+                               top_k=args.fs_top_k)
+    print(f"FS-masked swap: {int(fs_mask.sum())}/{len(fs_mask)} dims "
+          f"{np.where(fs_mask > 0)[0].tolist()}")
+    return fs_mask
+
+
+def cmd_serve(args) -> int:
+    from dvc_tpu_torch.serve import ConversionService, make_http_server
+    if args.pipeline == "world":
+        raise SystemExit(f"--pipeline world is {NOT_PORTED}")
+    if args.profile_transfer:
+        raise SystemExit(f"--profile_transfer is {NOT_PORTED}")
+    cfg = _config_from_args(args)
+    vocoder = _make_cli_vocoder(args)  # unported vocoders exit before any load
+    fs_mask = _load_fs_mask(args, cfg)
+    service = ConversionService(cfg, _load_model(args, cfg), args.dataset_fp, vocoder,
+                                max_wait_ms=args.max_wait_ms, fs_mask=fs_mask,
+                                device=args.device)
+    server = make_http_server(service, args.host, args.port)
+    print(f"serving on http://{args.host}:{args.port} "
+          f"({len(service.speakers())} target speakers, device {args.device})")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from dvc_tpu_torch.convert.conversion import VoiceConverter
+    from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+    for flag in ("long_context", "profile_transfer", "analyze"):
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag} is {NOT_PORTED}")
+    cfg = _config_from_args(args)
+    device = resolve_device(args.device)
+    use_exact_float32()  # the VAE is served in float32, never TF32
+    vocoder = _make_cli_vocoder(args)  # unported vocoders exit before any load
+    model = _load_model(args, cfg).to(device).eval()
+    converter = VoiceConverter(cfg, model, seed=args.seed, fs_mask=_load_fs_mask(args, cfg))
+    results = converter.convert_speaker_pair(
+        args.dataset_fp, args.src_spk, args.trg_spk,
+        os.path.join(args.log_dir, "generation"),
+        num_utterances=args.num_utterances, vocoder=vocoder)
+    print(f"converted {len(results)} utterances {args.src_spk} -> {args.trg_spk}")
+    return 0
+
+
+def cmd_vocode(args) -> int:
+    import numpy as np
+
+    from dvc_tpu_torch.utils.wavio import write_wav
+    mel = np.load(args.mel_npy)
+    if mel.ndim != 2:
+        raise SystemExit(f"expected an (n_mels, T) mel, got {mel.shape}")
+    if not args.vocoder_ckpt:
+        raise SystemExit(f"Griffin-Lim is {NOT_PORTED}; pass --vocoder_ckpt")
+    from dvc_tpu_torch.convert.vocode import make_vocoder
+    wav = make_vocoder(args.vocoder_ckpt, device=args.device)(mel)
+    out = args.out or os.path.splitext(args.mel_npy)[0] + "_vocoded.wav"
+    write_wav(out, wav, 16_000)
+    print(f"wrote {out} ({len(wav) / 16_000:.2f}s)")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="dvc_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("convert")
+    _add_model_args(p)
+    p.add_argument("--src_spk", default="VCTK-Corpus_wav16_p225")
+    p.add_argument("--trg_spk", default="VCTK-Corpus_wav16_p226")
+    p.add_argument("--num_utterances", type=int, default=2)
+    _add_vocoder_args(p)
+    p.add_argument("--long_context", action="store_true")
+    _add_fs_args(p)
+    p.add_argument("--profile_transfer", action="store_true")
+    p.add_argument("--analyze", action="store_true")
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("vocode")
+    p.add_argument("mel_npy")
+    p.add_argument("-o", "--out", default="")
+    p.add_argument("--vocoder_ckpt", default="")
+    p.add_argument("--gl_iters", type=int, default=32)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_vocode)
+
+    p = sub.add_parser("serve")
+    _add_model_args(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7860)
+    p.add_argument("--max_wait_ms", type=float, default=10.0,
+                   help="micro-batching window: how long the worker waits to "
+                        "aggregate concurrent requests into one batch")
+    _add_vocoder_args(p)
+    p.add_argument("--pipeline", default="mel", choices=["mel", "world"])
+    _add_fs_args(p)
+    p.add_argument("--profile_transfer", action="store_true")
+    p.set_defaults(fn=cmd_serve)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

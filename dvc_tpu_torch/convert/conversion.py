@@ -1,0 +1,159 @@
+"""Latent-swap voice conversion (port of dvc_tpu/convert/conversion.py).
+
+Reference voice_conversion_mel (model/variational_base_vae.py:243-330):
+  1. chunk source/target mels into (N, 80, 64) blocks;
+  2. encode both; per-speaker style = MEAN of style_mu over chunks;
+  3. source_z  = [src_style, src_content_mu]   (reconstruction probe)
+     convert_z = [trg_style, src_content_mu]   (the conversion);
+  4. decode; converted += postnet(converted); clamp to [0, 1];
+  5. concatenate chunks on time; vocode.
+The chunk axis is the batch axis, so an utterance converts in one pass.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from glob import glob
+
+import numpy as np
+import torch
+
+from dvc_tpu_torch.config import Config
+from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+from dvc_tpu_torch.ops.chunk import chunk_mel, unchunk_mel
+from dvc_tpu_torch.utils.wavio import write_wav
+
+
+def _model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+@torch.inference_mode()
+def _convert_chunks(model: DisentangledVAE, src_chunks: torch.Tensor,
+                    trg_chunks: torch.Tensor, mask: torch.Tensor | None = None):
+    """(Ns, 80, F), (Nt, 80, F) -> (recons, converted), both (80, Ns*F).
+
+    mask None: the plain swap of the first speaker_size style dims.
+    mask (D,) in {0, 1}: the FeatureSelection-masked swap — convert_z takes
+    the target's mean FULL latent on masked dims and the source's latent
+    elsewhere (conversion.py:58-95)."""
+    src_style_mu, _, src_content_mu, _ = model.encode(src_chunks)
+    trg_style_mu, _, trg_content_mu, _ = model.encode(trg_chunks)
+    n = src_chunks.shape[0]
+    src_style = src_style_mu.mean(0, keepdim=True).expand(n, -1)
+    source_z = torch.cat([src_style, src_content_mu], -1)
+    if mask is None:
+        trg_style = trg_style_mu.mean(0, keepdim=True).expand(n, -1)
+        convert_z = torch.cat([trg_style, src_content_mu], -1)
+    else:
+        trg_mean = torch.cat([trg_style_mu, trg_content_mu], -1).mean(0, keepdim=True)
+        convert_z = source_z * (1.0 - mask) + trg_mean * mask
+    recons = model.decode(source_z)
+    converted = model.decode(convert_z)
+    converted = converted + model.postnet(converted)
+    return unchunk_mel(recons), unchunk_mel(torch.clamp(converted, 0.0, 1.0))
+
+
+def binarize_fs_mask(mask: np.ndarray, speaker_size: int, threshold: float = 0.5,
+                     top_k: int | None = None) -> np.ndarray:
+    """Sigmoid feature mask (train-fs output) -> binary swap mask (D,).
+
+    Dims above threshold are swapped; the first speaker_size style dims
+    always are.  top_k caps the number of CONTENT dims swapped (the k
+    highest-sigmoid ones above threshold)."""
+    raw = np.asarray(mask, np.float32)
+    m = (raw > threshold).astype(np.float32)
+    if top_k is not None:
+        content = raw[speaker_size:].copy()
+        m[speaker_size:] = 0.0
+        for i in np.argsort(content)[::-1][:max(0, top_k)]:
+            if content[i] > threshold:
+                m[speaker_size + i] = 1.0
+    m[:speaker_size] = 1.0
+    return m
+
+
+def convert_mel(model: DisentangledVAE, source_mel: np.ndarray, target_mel: np.ndarray,
+                frames: int = 64, fs_mask: np.ndarray | None = None
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """(80, Ts), (80, Tt) -> (recons, converted), both (80, (Ts//64+1)*64),
+    on the model's device.  fs_mask: optional (latent_dim,) binary mask for
+    the FeatureSelection-masked swap.  Like the reference, the zero-padded
+    tail of the last chunk is kept."""
+    dev = _model_device(model)
+    src = chunk_mel(torch.as_tensor(np.asarray(source_mel, np.float32), device=dev), frames)
+    trg = chunk_mel(torch.as_tensor(np.asarray(target_mel, np.float32), device=dev), frames)
+    mask = None if fs_mask is None else torch.as_tensor(
+        np.asarray(fs_mask, np.float32), device=dev)
+    recons, converted = _convert_chunks(model, src, trg, mask)
+    return recons.cpu().numpy(), converted.cpu().numpy()
+
+
+def profile_transfer_mel(source_mel: np.ndarray, src_profile: np.ndarray,
+                         trg_profile: np.ndarray) -> np.ndarray:
+    """DSP baseline: shift the source mel by the difference of time-averaged
+    speaker profiles, clipped to [0, 1].  (80, T), (80,), (80,) -> (80, T)."""
+    src = np.asarray(source_mel, np.float32)
+    shift = (np.asarray(trg_profile, np.float32)
+             - np.asarray(src_profile, np.float32))[:, None]
+    return np.clip(src + shift, 0.0, 1.0)
+
+
+@dataclass
+class VoiceConverter:
+    """Directory-level runner mirroring voice_conversion_mel's file handling:
+    the first ``num_utterances`` sorted source utterances, each with a random
+    target utterance, written under a per-pair save dir.
+
+    Target files are sorted before the random pick, so a seed picks the same
+    target utterance on any filesystem (dvc_tpu globs them unsorted).  The
+    whole-utterance ``long_context`` encoder and the mel PNGs are not ported
+    yet."""
+
+    cfg: Config
+    model: DisentangledVAE
+    seed: int = 0
+    long_context: bool = False
+    fs_mask: np.ndarray | None = None
+
+    def convert_speaker_pair(self, dataset_fp: str, src_spk: str, trg_spk: str,
+                             generation_dir: str, num_utterances: int = 2,
+                             vocoder=None):
+        """Returns a list of (utterance_id, recons_mel, converted_mel[,
+        waveform]) tuples; waveforms are also written as wavs."""
+        if self.long_context:
+            raise NotImplementedError("--long_context is not yet ported — see ROADMAP.md")
+        rng = np.random.RandomState(self.seed)
+        save_dir = os.path.join(generation_dir, f"{src_spk}_to_{trg_spk}")
+        os.makedirs(save_dir, exist_ok=True)
+
+        src_fps = sorted(glob(os.path.join(dataset_fp, src_spk, "*.npy")))
+        trg_fps = sorted(glob(os.path.join(dataset_fp, trg_spk, "*.npy")))
+        if not src_fps:
+            raise FileNotFoundError(
+                f"no mel .npy files for source speaker {src_spk!r} under {dataset_fp}")
+        if not trg_fps:
+            raise FileNotFoundError(
+                f"no mel .npy files for target speaker {trg_spk!r} under {dataset_fp}")
+        results = []
+        for i in range(min(num_utterances, len(src_fps))):
+            source_mel = np.load(src_fps[i])
+            target_mel = np.load(trg_fps[rng.choice(len(trg_fps))])
+            # "<spk>_<utt>_mel.npy" -> "<utt>" (reference naming)
+            parts = os.path.basename(src_fps[i]).split(".")[0].split("_")
+            utt_id = parts[-2] if len(parts) >= 2 else str(i)
+            recons, converted = convert_mel(self.model, source_mel, target_mel,
+                                            self.cfg.vae.frames, fs_mask=self.fs_mask)
+            results.append([utt_id, recons, converted])
+
+        if vocoder is not None:
+            mels = [r[2] for r in results]
+            batch_fn = getattr(vocoder, "batch", None)
+            wavs = batch_fn(mels) if batch_fn is not None else [vocoder(m) for m in mels]
+            for entry, wav in zip(results, wavs):
+                write_wav(os.path.join(
+                    save_dir, f"convert_{src_spk}_to_{trg_spk}_{entry[0]}.wav"),
+                    wav, self.cfg.audio.sample_rate)
+                entry.append(wav)
+        return [tuple(r) for r in results]
