@@ -24,7 +24,21 @@ Phases; any failure exits non-zero before a result line is printed:
             VAE on the card against the same VAE on the CPU;
   4. shapes the kernel against its plain version at the shapes the main path
             gave it, float32 and bf16 weights at the limits above, timed with
-            CUDA events.
+            CUDA events;
+  5. profile device time by kernel and the device's idle share, bf16 weights;
+  6. int8   int8 weight streaming (the port of the TPU's quantized streamed
+            kernel): (i) the fine check at a narrow width (8 layers, 64
+            channels, final1 in float32, first_conv zeroed so the sampled
+            output is not fed back) against the plain version, B = 4,
+            T = 1024, with a pack whose tap scales are swapped in one layer
+            rejected; (ii) the coarse check at full width, B in {1, 4},
+            T = 1024 (atol 0.05), with the same swap in every layer
+            reported; (iii) stochastic mode; (iv) its main path, generate(...,
+            quantize_int8=True) on 3 x 64 mel frames at full width, timed,
+            launches counted; (v) the kernel against its plain version at
+            that path's shape, full width, in (i)'s setup (first_conv
+            zeroed, final1 in float32), with packs whose scales are wrong
+            rejected; (vi) its profile.
 The lines before the last report the card (nvidia-smi name and power limit),
 timings and one JSON line of kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -32,6 +46,7 @@ timings and one JSON line of kernels; the last line is
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -49,7 +64,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core peak
-              torch.float32: 67e12}    # float32 outside the tensor cores
+              torch.float32: 67e12,    # float32 outside the tensor cores
+              torch.int8: 989e12}      # int8 codes times bf16 activations: bf16
+                                       # arithmetic, as dvc_tpu does it (:512-516)
 F32_ATOL = 5e-5    # float32 sums in another order over 1616-term dots: ~10x
                    # the error measured (PERF.md), far below the corrupted packs'
 BF16_ATOL = 0.05   # bf16 roundings of h, the gate and the skip flip by one ulp
@@ -60,6 +77,14 @@ TRAJ_STD = 0.05    # the doctored trajectory's spread, set by doctor_head and
                    # required at T = 1024, start-up transient included
 MAIN_STD = 0.02    # required over the main path's 16,384 steps, where the
                    # steady trajectory, which moves less, dominates
+INT8_FINE_ATOL = 6e-3  # int8 kernel vs plain at the narrow width, feedback cut:
+                       # about twice the error measured, under the error of a
+                       # pack with one layer's tap scales swapped (PERF.md)
+INT8_FULL_ATOL = 0.013  # the same at full width at the main path's shape: about
+INT8_FULL_RMS = 3e-3    # twice the max and rms errors measured; the bf16 noise
+                        # there is dense, so the rms holds mid-stack faults (PERF.md)
+NARROW = dict(layers=8, stacks=2, residual_channels=64, gate_channels=64,
+              skip_out_channels=32)  # int8-aligned: R, C = 80 and G/2 whole vectors
 SEED = 0
 
 
@@ -123,10 +148,34 @@ def corrupted(packed):
     return {"wrong tap": wrong_tap, "dropped residual": no_res}
 
 
+def swapped_scales(packed, layers):
+    """An int8 pack whose tap x_{t-2d} and tap x_{t-d} scales are swapped in
+    the given layers: the same codes, wrong per-column weights."""
+    bad = dict(packed, s_in=packed["s_in"].clone())
+    bad["s_in"][layers, 0] = packed["s_in"][layers, 1]
+    bad["s_in"][layers, 1] = packed["s_in"][layers, 0]
+    return bad
+
+
+def int8_corrupted(packed):
+    """int8 packs with the right codes and some scales wrong: {name: (pack,
+    whether the full-width check must reject it)}.  The legacy skip sum is
+    scaled by sqrt(1/2) after every layer, so layer 3's fault reaches the
+    head about 2^-10 weaker and hides in the bf16 noise (PERF.md)."""
+    def zeroed(key, idx):
+        bad = dict(packed, **{key: packed[key].clone()})
+        bad[key][idx] = 0
+        return bad
+    return {"layer 12's s_so zeroed": (zeroed("s_so", 12), True),
+            "layer 23's tap x_{t-2d} scales zeroed": (zeroed("s_in", (23, 0)), True),
+            "layer 3's s_so zeroed": (zeroed("s_so", 3), False),
+            "tap scales swapped in every layer": (swapped_scales(packed, slice(None)), False)}
+
+
 def bound(packed, cond):
-    """(bound_ms, bound_by): the larger of moving every input once and the
-    output once at the memory rate, and the multiply-adds at the peak rate
-    of the weight dtype."""
+    """(bound_ms, bound_by): the larger of moving every input once (int8
+    codes and their scales included) and the output once at the memory
+    rate, and the multiply-adds at the peak rate of the weight dtype."""
     c = packed["cfg"]
     L, R, G, S = c.layers, c.residual_channels, c.gate_channels, c.skip_out_channels
     C, K = c.cin_channels, c.out_channels
@@ -147,6 +196,42 @@ def stream_us(packed) -> float:
     nbytes = sum(v.numel() * v.element_size() for v in packed.values()
                  if isinstance(v, torch.Tensor))
     return nbytes / HBM_BYTES_PER_S * 1e6
+
+
+def profile(ws, packed, short, card, name):
+    """Device time by sub-kernel and the device's idle share over one
+    wavenet_generate call on `short` (one row, a few hundred steps).  The
+    profiler's kernel records are counted against the launches the call
+    makes (L per step of each layer kernel, one of final1 and of head).  The
+    busy time is that of the records; launches the profiler did not record
+    are counted and their time at their kernel's mean is printed beside."""
+    steps, L = short.shape[1], packed["cfg"].layers
+    want = {"layer_in": L * steps, "layer_out": L * steps, "final1": steps, "head": steps}
+    ws.wavenet_generate(packed, short, 0, True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, prof_ms = events_ms(lambda: ws.wavenet_generate(packed, short, 0, True))
+    by_kernel = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        for part in ("layer_in", "layer_out", "final1", "head", "init_h", "Memset"):
+            if dev_us > 0 and part in e.key:
+                n_, us_ = by_kernel.get(part, (0, 0.0))
+                by_kernel[part] = (n_ + e.count, us_ + dev_us)
+    if not all(k in by_kernel for k in want):
+        print(f"profile [{card}] {name}: the profiler recorded no device time for some "
+              f"kernels (not measured)", flush=True)
+        return
+    busy_us = sum(us for _, us in by_kernel.values())
+    missing = sum(want[k] - n for k, (n, _) in by_kernel.items() if k in want)
+    missing_us = sum((want[k] - n) * us / n for k, (n, us) in by_kernel.items() if k in want)
+    parts = ", ".join(f"{k} {us / n:.2f} us x {n}" + (f"/{want[k]}" if k in want else "")
+                      for k, (n, us) in by_kernel.items())
+    print(f"profile [{card}] B=1 T={steps} {name}: {prof_ms * 1e3 / steps:.1f} us/sample-step "
+          f"wall, device busy {busy_us / steps:.1f} us/step (idle share "
+          f"{1 - busy_us / (prof_ms * 1e3):.3f}); launches recorded/made: {parts}; "
+          f"{missing} unrecorded, {missing_us / steps:.2f} us/step at their kernels' means",
+          flush=True)
 
 
 def check(cond_ok: bool, what: str):
@@ -308,13 +393,13 @@ def main() -> int:
         with service._stats_lock:
             before = dict(service.stats)
         seen.clear()
-        ws.wavenet_generate.launches = 0
+        ws.wavenet_generate.launches.clear()
         ws.mol_sample.launches = 0
         t_main = time.perf_counter()
         with ThreadPoolExecutor(3) as pool:
             replies = list(pool.map(post, (1, 2, 3)))
         main_s = time.perf_counter() - t_main
-        launches = ws.wavenet_generate.launches
+        launches = ws.wavenet_generate.launches["bfloat16"]
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             stats = json.loads(r.read())
     finally:
@@ -331,7 +416,7 @@ def main() -> int:
     d_req = stats["requests"] - before["requests"]
     d_bat = stats["batches"] - before["batches"]
     check(d_req == 3 and d_bat < d_req, f"no batching: {d_req} requests in {d_bat} batches")
-    check(launches > 0, "the main path did not launch the CUDA kernel")
+    check(launches > 0, "the main path did not launch the bf16 CUDA kernel")
     lat = sorted(r[2] for r in replies)
     print(f"main path [{card}]: 3 concurrent POST /convert (0.5 s wav -> {64 * hop} samples) "
           f"in {main_s:.2f} s; request latency min {lat[0]:.2f} s, max {lat[-1]:.2f} s; "
@@ -363,45 +448,155 @@ def main() -> int:
         check(math.isfinite(err) and err <= atol, f"main-shape {name} kernel vs plain {err}")
         check(plain.std().item() > MAIN_STD, "doctored trajectory does not move")
     tmp.cleanup()
+    k1 = {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+          "bound_ms": b_ms, "bound_by": b_by}  # bf16: the main path's weights
 
     # 5. where the kernel's time goes: device time by kernel, device idle share
     short = cond[:1, :256].contiguous()
-    ws.wavenet_generate(packed, short, 0, True)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, prof_ms = events_ms(lambda: ws.wavenet_generate(packed, short, 0, True))
-    steps = short.shape[1]
-    by_kernel = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0.0)
-        for part in ("layer_in", "layer_out", "final1", "head", "init_h", "Memset"):
-            if dev_us > 0 and part in e.key:
-                n_, us_ = by_kernel.get(part, (0, 0.0))
-                by_kernel[part] = (n_ + e.count, us_ + dev_us)
-    busy_us = sum(us for _, us in by_kernel.values())
-    if busy_us > 0:
-        parts = ", ".join(f"{k} {us / n:.2f} us x {n // steps}/step"
-                          for k, (n, us) in by_kernel.items() if n >= steps)
-        print(f"profile [{card}] B=1 T={steps} bf16: {prof_ms * 1e3 / steps:.1f} us/sample-step "
-              f"wall, device busy {busy_us / steps:.1f} us/step "
-              f"(idle share {1 - busy_us / (prof_ms * 1e3):.3f}); {parts}", flush=True)
-    else:
-        print(f"profile [{card}]: the profiler recorded no device time (not measured)",
-              flush=True)
+    profile(ws, packed, short, card, "bf16")
 
-    report = {"kernels": [{
-        "name": "wavenet_generate",
-        "route": "cuda",
-        "source": "dvc_tpu_torch/kernels/csrc/wavenet_step.cu",
-        "replaces": "dvc_tpu/kernels/wavenet_step.py:415",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,  # no single PyTorch call computes AR generation
-    }]}
+    # 6. int8 weight streaming -------------------------------------------------
+    # (i) the fine check.  int8 activations are bf16 whatever the weights, so
+    # the sum order flips bf16 roundings as in the bf16 check.  Here few flip
+    # and none is amplified: a narrow width, final1 in float32 (its bf16
+    # rounding of the skip sum flips most), and first_conv zeroed, so no flip
+    # is fed back through the sampled output (with feedback this width is
+    # chaotic, PERF.md).  The layer kernels are the ones generate's
+    # bf16-final1 default runs.
+    ncfg = VocoderConfig(**NARROW)
+    narrow = doctor_head(seeded(lambda: WaveNet(ncfg), SEED + 5).to(dev).eval())
+    with torch.no_grad():
+        narrow.first_conv.weight.zero_()
+    g = torch.Generator(device=dev).manual_seed(30)
+    frames = torch.rand(4, 1024 // narrow.hop, ncfg.cin_channels, device=dev, generator=g)
+    with torch.inference_mode():
+        cond_n = narrow.upsample(frames).contiguous()
+    npk = ws.pack_wavenet_params(narrow, torch.float32, dev, quantize=True)
+    kern = ws.wavenet_generate(npk, cond_n, 0, True)
+    plain = ws.wavenet_generate_plain(npk, cond_n, 0, True)
+    err = (kern - plain).abs().max().item()
+    bad_err = (ws.wavenet_generate(swapped_scales(npk, [3]), cond_n, 0, True)
+               - plain).abs().max().item()
+    print(f"int8 fine check [{card}] narrow L={ncfg.layers} R={ncfg.residual_channels}, "
+          f"final1 float32, no feedback, B=4 T={cond_n.shape[1]}: max_abs_err {err:.3e} "
+          f"(atol {INT8_FINE_ATOL}); trajectory std {plain.std().item():.4f}; layer-3 tap "
+          f"scales swapped: {bad_err:.3e}", flush=True)
+    check(math.isfinite(err) and err <= INT8_FINE_ATOL, f"narrow int8 kernel vs plain {err}")
+    check(plain.std().item() > TRAJ_STD, "narrow doctored trajectory does not move")
+    check(bad_err > INT8_FINE_ATOL, "the int8 fine check passes swapped tap scales")
+
+    # (ii) the coarse check at full width; bf16 final1, generate's default
+    q8 = ws.pack_wavenet_params(det, torch.bfloat16, dev, quantize=True)
+    for b in (1, 4):
+        g = torch.Generator(device=dev).manual_seed(10 + b)  # phase 2's frames
+        frames = torch.rand(b, 1024 // det.hop, vcfg.cin_channels, device=dev, generator=g)
+        with torch.inference_mode():
+            cond_b = det.upsample(frames).contiguous()
+        t = cond_b.shape[1]
+        ws.wavenet_generate(q8, cond_b, 0, True)
+        kern, k_ms = events_ms(lambda: ws.wavenet_generate(q8, cond_b, 0, True))
+        plain, p_ms = events_ms(lambda: ws.wavenet_generate_plain(q8, cond_b, 0, True))
+        err = (kern - plain).abs().max().item()
+        bad_err = (ws.wavenet_generate(swapped_scales(q8, slice(None)), cond_b, 0, True)
+                   - plain).abs().max().item()
+        print(f"kernel vs plain [{card}] int8 B={b} T={t}: max_abs_err {err:.3e} (atol "
+              f"{BF16_ATOL}); trajectory std {plain.std().item():.4f}; kernel "
+              f"{k_ms * 1e3 / t:.1f} us/sample-step, plain {p_ms * 1e3 / t:.1f} "
+              f"us/sample-step, HBM-streaming bound {stream_us(q8):.1f} us; tap scales "
+              f"swapped in every layer: {bad_err:.3e}", flush=True)
+        check(math.isfinite(err) and err <= BF16_ATOL, f"int8 B={b} kernel vs plain {err}")
+        check(plain.std().item() > TRAJ_STD, "doctored int8 trajectory does not move")
+        # reported, not required: at full width the swap hides in the bf16
+        # noise (PERF.md), as the bf16 check's corrupted packs do
+
+    # (iii) stochastic mode
+    q8r = ws.pack_wavenet_params(rnd, torch.bfloat16, dev, quantize=True)
+    s1 = ws.wavenet_generate(q8r, cond_b, 1)
+    s1b = ws.wavenet_generate(q8r, cond_b, 1)
+    s2 = ws.wavenet_generate(q8r, cond_b, 2)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(s1).all()) and s1.abs().max().item() <= 1.0,
+          "int8 stochastic output not finite in [-1, 1]")
+    check(torch.equal(s1, s1b), "int8: same seed, different samples")
+    check(not torch.equal(s1, s2), "int8: different seeds, same samples")
+    print("int8 stochastic mode: finite in [-1, 1], repeatable per seed, seeds differ",
+          flush=True)
+
+    # (iv) its main path: generate on mel frames, at full width
+    voc8 = seeded(lambda: WaveNet(vcfg), SEED + 4).to(dev).eval()  # phase 3's weights
+    g = torch.Generator(device=dev).manual_seed(40)
+    mels = torch.rand(b_main, f_main, vcfg.cin_channels, device=dev, generator=g)
+
+    def gen8(c):
+        return ws.generate(voc8, c, 7, quantize_int8=True)
+
+    gen8(mels[:, :2])  # warm-up: the int8 pack and its upload
+    torch.cuda.synchronize()
+    ws.wavenet_generate.launches.clear()
+    t_main = time.perf_counter()
+    wav8 = gen8(mels)
+    torch.cuda.synchronize()
+    main8_s = time.perf_counter() - t_main
+    launches8 = ws.wavenet_generate.launches["int8"]
+    check(wav8.shape == (b_main, f_main * hop), f"int8 main path output {tuple(wav8.shape)}")
+    check(bool(torch.isfinite(wav8).all()) and wav8.abs().max().item() <= 1.0,
+          "int8 main path output not finite in [-1, 1]")
+    check(launches8 > 0, "the int8 main path did not launch the int8 CUDA kernel")
+    print(f"int8 main path [{card}]: generate(quantize_int8=True) on {tuple(mels.shape)} mel "
+          f"frames -> {tuple(wav8.shape)} in {main8_s:.2f} s; int8 launches {launches8}",
+          flush=True)
+
+    # (v) the int8 kernel against its plain version at that path's shape, at
+    # full width, in the fine check's setup: first_conv zeroed, final1 in
+    # float32.  Its layer kernels are those of generate's default pack (q8),
+    # whose time at this shape is printed beside.
+    _, q8_ms = events_ms(lambda: ws.wavenet_generate(q8, cond, 0, True))
+    nofb = copy.deepcopy(det)
+    with torch.no_grad():
+        nofb.first_conv.weight.zero_()
+    f8 = ws.pack_wavenet_params(nofb, torch.float32, dev, quantize=True)
+    kern8, _ = events_ms(lambda: ws.wavenet_generate(f8, cond, 0, True))
+    _, k8_ms = events_ms(lambda: ws.wavenet_generate(f8, cond, 0, True))
+    plain8, p8_ms = events_ms(lambda: ws.wavenet_generate_plain(f8, cond, 0, True))
+    def max_rms(out):
+        d = out - plain8
+        return d.abs().max().item(), d.pow(2).mean().sqrt().item()
+
+    def passes(e_max, e_rms):
+        return math.isfinite(e_max) and e_max <= INT8_FULL_ATOL and e_rms <= INT8_FULL_RMS
+
+    err8, rms8 = max_rms(kern8)
+    b8_ms, b8_by = bound(f8, cond)
+    std8 = plain8.std().item()
+    limits = f"(atol {INT8_FULL_ATOL}, rms {INT8_FULL_RMS})"
+    print(f"kernel at main-path shapes [{card}] cond {tuple(cond.shape)} int8, final1 float32, "
+          f"no feedback: {k8_ms:.1f} ms ({k8_ms * 1e3 / cond.shape[1]:.1f} us/sample-step; "
+          f"generate's bf16-final1 pack {q8_ms:.1f} ms), plain {p8_ms:.1f} ms, bound "
+          f"{b8_ms:.3f} ms ({b8_by}), max_abs_err {err8:.3e}, rms err {rms8:.3e} {limits}; "
+          f"trajectory std {std8:.4f}", flush=True)
+    check(passes(err8, rms8), f"main-shape int8 kernel vs plain {err8} (rms {rms8})")
+    check(std8 > MAIN_STD, "doctored int8 trajectory does not move")
+    rejected = []
+    for what, (bad, must) in int8_corrupted(f8).items():
+        bad_max, bad_rms = max_rms(ws.wavenet_generate(bad, cond, 0, True))
+        print(f"corrupted int8 pack [main-path shape] {what}: max_abs_err {bad_max:.3e}, rms "
+              f"err {bad_rms:.3e} {limits}{'' if must else ', reported'}", flush=True)
+        rejected.append((what, not must or not passes(bad_max, bad_rms)))
+    for what, ok in rejected:
+        check(ok, f"the full-width int8 check passes a pack with {what}")
+
+    # (vi) where its time goes
+    profile(ws, q8, short, card, "int8")
+
+    k3 = {"launches": launches8, "max_abs_err": err8, "ms": k8_ms, "plain_ms": p8_ms,
+          "bound_ms": b8_ms, "bound_by": b8_by}
+    src = "dvc_tpu_torch/kernels/csrc/wavenet_step.cu"
+    report = {"kernels": [  # library_ms: no single PyTorch call computes AR generation
+        {"name": "wavenet_generate", "route": "cuda", "source": src,
+         "replaces": "dvc_tpu/kernels/wavenet_step.py:415", **k1, "library_ms": None},
+        {"name": "wavenet_generate_int8", "route": "cuda", "source": src,
+         "replaces": "dvc_tpu/kernels/wavenet_step.py:771", **k3, "library_ms": None},
+    ]}
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,10 @@ dvc_tpu/convert/vocode.py).
 
 T mel frames -> T * hop samples through the WaveNet's autoregressive MoL
 sampler (reference preprocessing/processing.py:45-74), batched over
-utterances.  The sampler is kernels/wavenet_step.wavenet_generate: on cuda
-the hand-written CUDA kernel with bf16 weights, as dvc_tpu's Pallas path
-packs them; on the CPU its plain PyTorch version with float32 weights.
+utterances.  The sampler is kernels/wavenet_step.generate, as dvc_tpu's
+make_vocoder calls pallas_generate: on cuda the hand-written CUDA kernel with bf16 weights, as
+dvc_tpu's Pallas path packs them; on the CPU its plain PyTorch version with
+float32 weights.
 """
 
 from __future__ import annotations
@@ -16,10 +17,10 @@ import numpy as np
 import torch
 
 from dvc_tpu_torch.config import VocoderConfig
-from dvc_tpu_torch.kernels.wavenet_step import pack_wavenet_params_cached, wavenet_generate
+from dvc_tpu_torch.kernels.wavenet_step import generate
 from dvc_tpu_torch.models.wavenet import WaveNet
 from dvc_tpu_torch.utils.convert import fuse_weight_norm, load_torch_state_dict
-from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+from dvc_tpu_torch.utils.device import resolve_device
 
 
 def load_vocoder_params(ckpt_path: str) -> dict[str, torch.Tensor]:
@@ -45,7 +46,6 @@ def make_vocoder(ckpt_path: str | None, cfg: VocoderConfig = VocoderConfig(),
     checkpoint file.  Every call draws with the same ``seed``, as dvc_tpu's
     make_vocoder does."""
     dev = resolve_device(device)
-    use_exact_float32()  # the upsampler's ConvTranspose2d would run in TF32
     wdt = torch.bfloat16 if dev.type == "cuda" else torch.float32
     if variables is None:
         variables = load_vocoder_params(ckpt_path)
@@ -55,12 +55,7 @@ def make_vocoder(ckpt_path: str | None, cfg: VocoderConfig = VocoderConfig(),
     hop = model.hop
 
     def _generate(c: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            cf = torch.from_numpy(c).to(dev)
-            # packed once per weight set (memo), the ~49 MB upload with it
-            packed = pack_wavenet_params_cached(model, wdt, dev)
-            wav = wavenet_generate(packed, model.upsample(cf).contiguous(), seed)
-            return wav.cpu().numpy()
+        return generate(model, c, seed, weight_dtype=wdt, device=dev).cpu().numpy()
 
     def wavegen(mel: np.ndarray) -> np.ndarray:
         return wavegen_batch([mel])[0]
