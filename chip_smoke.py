@@ -38,7 +38,19 @@ Phases; any failure exits non-zero before a result line is printed:
             launches counted; (v) the kernel against its plain version at
             that path's shape, full width, in (i)'s setup (first_conv
             zeroed, final1 in float32), with packs whose scales are wrong
-            rejected; (vi) its profile.
+            rejected; (vi) its profile;
+  7. probes the tools/ Pallas probes as CUDA kernels (dvc_tpu_torch.tools):
+            P1 bench_taps (modes dynamic, static, compute), P2 resident and
+            P3 streamed bench_body, P4 bench_body2 (stages 0-4). (i) their
+            main path: each entry point's bench at its probe's constants
+            (B = 8, R = 512, T = 2000 or 1000, 24 layers), launches counted;
+            (ii) each kernel against its plain twin there, relative to the
+            reference's max (float32 1e-4, bf16 5e-3) where the output does
+            not underflow; (iii) the checks that can fail, at T = 65, which
+            reads every tap (P1 with a weight of larger gain), where a kernel
+            with layer 23 at half its dilation (P1 static and compute: a
+            zeroed w column), and P2 and P3 with each other's cond rule (also
+            at T = 1000), must be rejected.
 The lines before the last report the card (nvidia-smi name and power limit),
 timings and one JSON line of kernels; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -86,6 +98,13 @@ INT8_FULL_RMS = 3e-3    # twice the max and rms errors measured; the bf16 noise
 NARROW = dict(layers=8, stacks=2, residual_channels=64, gate_channels=64,
               skip_out_channels=32)  # int8-aligned: R, C = 80 and G/2 whole vectors
 SEED = 0
+PROBE_F32_TOL = 1e-4   # P1, float32, relative to max |ref|: the kernel's other f32 sum
+                       # order reads up to 7e-6, corrupted kernels 0.2 and more (PERF.md)
+PROBE_BF16_TOL = 5e-3  # P2-P4, bf16 ring and gate, relative to max |ref|: flipped bf16
+                       # roundings read up to 2.4e-3, corrupted kernels 1.2e-2 and more
+SHORT_T = 65           # probe checks that can fail: reads every tap (2 x 32 + 1)
+DECAYED = 1e-12        # max |ref| under which a probe's own output has decayed (P1 at
+                       # T = 2000, P4 stage 0 at T = 1000): reported there, held at SHORT_T
 
 
 def card_line() -> str:
@@ -237,6 +256,210 @@ def profile(ws, packed, short, card, name):
 def check(cond_ok: bool, what: str):
     if not cond_ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 where both are all zero)."""
+    d = (got.double() - want.double()).abs().max().item()
+    m = want.double().abs().max().item()
+    return d / m if m > 0 else (0.0 if d == 0 else math.inf)
+
+
+def probe_bound(kind, w, B, T, stage=0, layers=24):
+    """(bound_ms, bound_by) of a probe run: every input once and the output
+    once at the memory rate against the multiply-adds at the peak rate of
+    their type (P1 float32; P2-P4 bf16 operands).  P4 reads only the inputs
+    its stage uses, and its head only final2's column 0."""
+    if kind == "taps":
+        r = w.shape[0]
+        nbytes = w.numel() * 4 + B * r * 4
+        t_ops = 2.0 * layers * B * r * r * T / PEAK_FLOPS[torch.float32]
+    else:
+        layers, _, r, g = w["w_dil"].shape
+        s, c = w["w_skip"].shape[2], w["w_c"].shape[1]
+        keys = ["w_dil", "w_c", "w_skip", "w_out"]
+        if kind == "body" or stage >= 4:
+            keys.append("b" if kind == "body" else "b_dil")
+        if kind == "body2" and stage >= 1:
+            keys.append("cond_in")
+        nbytes = sum(w[k].numel() * w[k].element_size() for k in keys)
+        macs = layers * (g * (3 * r + c) + (s + r) * (g // 2))
+        if kind == "body2" and stage >= 3:
+            nbytes += w["w_first"].numel() * 4 + w["w_f1"].numel() * 2 + s * 4
+            macs += s * s + s
+        nbytes += (T * B if kind == "body2" and stage >= 2 else B * r) * 4
+        t_ops = 2.0 * macs * B * T / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def probe_profile(pb, w, dil, B, card, steps=50):
+    """Where P3's time goes: device time of its two kernels (the phases
+    that P2 runs between grid barriers) and the device's idle share over one
+    streamed call of `steps` steps, by torch.profiler."""
+    layers = len(dil)
+    want = {"body_in": layers * steps, "body_out": layers * steps}
+    pb.streamed(w, B=B, T=steps, dil=dil)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, ms = events_ms(lambda: pb.streamed(w, B=B, T=steps, dil=dil))
+    by_kernel = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        for part in want:
+            if dev_us > 0 and part in e.key:
+                n_, us_ = by_kernel.get(part, (0, 0.0))
+                by_kernel[part] = (n_ + e.count, us_ + dev_us)
+    if set(by_kernel) != set(want):
+        print(f"profile P3 [{card}]: the profiler recorded no device time (not measured)",
+              flush=True)
+        return
+    busy_us = sum(us for _, us in by_kernel.values())
+    parts = ", ".join(f"{k} {us / n:.2f} us x {n}/{want[k]}" for k, (n, us) in by_kernel.items())
+    print(f"profile P3 [{card}] B={B} T={steps}: {ms * 1e3 / steps:.1f} us/sample wall, device "
+          f"busy {busy_us / steps:.1f} us/step (idle share {1 - busy_us / (ms * 1e3):.3f}); "
+          f"{parts}", flush=True)
+
+
+def probes(card, dev):
+    """Phase 7: the tools/ probes P1-P4 as CUDA kernels.  (i) their main
+    path, each entry point's bench at the probe's constants, counted; (ii)
+    each kernel against its plain twin at those constants; (iii) the checks
+    that can fail, at T = SHORT_T, which reads every ring tap, where the
+    probes' own outputs are alive, with corrupted variants that must be
+    rejected.  Returns the kernels' report entries."""
+    from dvc_tpu_torch.tools import _common
+    from dvc_tpu_torch.tools import bench_body as pb
+    from dvc_tpu_torch.tools import bench_body2 as p4
+    from dvc_tpu_torch.tools import bench_taps as p1
+
+    B = p1.B
+    # (i) the main path: every entry point once, counts from 0
+    p1.taps.launches.clear()
+    pb.resident.launches = pb.streamed.launches = 0
+    p4.body2.launches.clear()
+    t_main = time.perf_counter()
+    timed = {("taps", m): p1.bench(m, device=dev) for m in p1.MODES}
+    timed[("resident", None)] = pb.bench("resident", pb.make_resident(device=dev), device=dev)
+    timed[("streamed", None)] = pb.bench("streamed", pb.make_streamed(device=dev), device=dev)
+    timed.update({("body2", st): p4.bench(st, device=dev) for st in p4.STAGES})
+    main_s = time.perf_counter() - t_main
+    launches = {("taps", m): p1.taps.launches[m] for m in p1.MODES}
+    launches[("resident", None)] = pb.resident.launches
+    launches[("streamed", None)] = pb.streamed.launches
+    launches.update({("body2", st): p4.body2.launches[st] for st in p4.STAGES})
+    counts = json.dumps({f"{k}[{v}]": n for (k, v), n in launches.items()})
+    print(f"probes main path [{card}]: every entry point at its probe's constants in "
+          f"{main_s:.1f} s; launches {counts}", flush=True)
+    for key, n in launches.items():
+        check(n > 0, f"the probes' main path did not launch {key}")
+
+    # the weights of the main path, drawn again for the checks
+    dil = _common.geometry(p1.LAYERS)[0]
+    bad_dil = dil.copy()
+    bad_dil[23] //= 2  # the last layer reads its taps at half its dilation
+    w_p1 = torch.from_numpy(p1.default_w()).to(dev)
+    w_body = pb.prepare(pb.weights(), dev)
+    w_b2 = p4.prepare(p4.weights(), dev)
+
+    def runs(kind, key):
+        """(kernel fn, plain fn, tol) of a probe variant: fn(w, T, dil) ->
+        (out, skip), skip None for P1."""
+        if kind == "taps":
+            return (lambda w, T, dil: (p1.taps(key, w, B=B, T=T, dil=dil), None),
+                    lambda w, T, dil: (p1.taps_plain(key, w, B=B, T=T, dil=dil), None),
+                    PROBE_F32_TOL)
+        if kind in ("resident", "streamed"):
+            kern, plain = getattr(pb, kind), getattr(pb, f"{kind}_plain")
+            return (lambda w, T, dil, **kw: kern(w, B=B, T=T, dil=dil, **kw),
+                    lambda w, T, dil: plain(w, B=B, T=T, dil=dil), PROBE_BF16_TOL)
+        return (lambda w, T, dil: p4.body2(w, key, B=B, T=T, dil=dil),
+                lambda w, T, dil: p4.body2_plain(w, key, B=B, T=T, dil=dil), PROBE_BF16_TOL)
+
+    def errs(got, want):
+        pairs = [(got[0], want[0])] + ([(got[1], want[1])] if want[1] is not None else [])
+        rel = max(rel_err(g, w_) for g, w_ in pairs)
+        absd = max((g - w_).abs().max().item() for g, w_ in pairs)
+        return rel, absd
+
+    report, wants = {}, {}
+    # (ii) at the probes' constants
+    for (kind, key) in timed:
+        kern, plain, tol = runs(kind, key)
+        w = {"taps": w_p1, "body2": w_b2}.get(kind, w_body)
+        T = p1.T if kind == "taps" else pb.T
+        got = kern(w, T, dil)
+        want, p_ms = events_ms(lambda: plain(w, T, dil))
+        wants[kind] = want
+        rel, absd = errs(got, want)
+        alive = want[0].abs().max().item() > DECAYED
+        b_ms, b_by = probe_bound(kind, w, B, T, key if kind == "body2" else 0)
+        t = timed[(kind, key)]
+        name = f"{kind}[{key}]" if key is not None else kind
+        print(f"probe {name} [{card}] B={B} T={T}: kernel {t['ms']:.2f} ms "
+              f"({t['us_per_step']:.2f} us/sample, {t['us_per_step'] / p1.LAYERS * 1e3:.0f} "
+              f"ns/layer), plain {p_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}); "
+              f"rel err {rel:.3e} (limit {tol}), max abs err {absd:.3e}, max |ref| "
+              f"{want[0].abs().max().item():.3e}{'' if alive else ' (decayed: held below)'}",
+              flush=True)
+        check(math.isfinite(absd), f"probe {name}: non-finite output")
+        if alive:
+            check(rel <= tol, f"probe {name} kernel vs plain {rel}")
+        report[(kind, key)] = {"ms": t["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "max_abs_err": absd,
+                               "rel_err": rel if alive else 0.0}  # decayed: not held here
+
+    probe_profile(pb, w_body, dil, B, card)
+
+    # (iii) the checks that can fail, at SHORT_T, with corrupted variants
+    gen = np.random.RandomState(1)
+    short_w = {g: torch.from_numpy((gen.randn(p1.R, p1.R) * g / math.sqrt(p1.R)).astype(
+        np.float32)).to(dev) for g in (0.6, 0.3)}
+    w_b2_short = dict(w_b2, cond_in=w_b2["cond_in"][:SHORT_T])
+    for (kind, key) in timed:
+        kern, plain, tol = runs(kind, key)
+        T = SHORT_T
+        if kind == "taps":
+            # the probe's w underflows; gain 0.6 / sqrt(R) keeps h alive over
+            # 65 x 24 layers without chaos, compute (3h) at 0.3 over 8 steps
+            w = short_w[0.3 if key == "compute" else 0.6]
+            T = 8 if key == "compute" else SHORT_T
+        else:
+            w = w_b2_short if kind == "body2" else w_body
+        want = plain(w, T, dil)
+        rel, absd = errs(kern(w, T, dil), want)
+        bad = {}
+        if kind == "taps" and key != "dynamic":
+            wz = w.clone()
+            wz[:, 5] = 0
+            bad["w column 5 zeroed"] = kern(wz, T, dil)
+        else:
+            bad["layer 23 at half its dilation"] = kern(w, T, bad_dil)
+        if kind == "resident":
+            bad["P3's cond rule"] = kern(w, T, dil, cond_rule="layer")
+        if kind == "streamed":
+            bad["P2's cond rule"] = kern(w, T, dil, cond_rule="step")
+        name = f"{kind}[{key}]" if key is not None else kind
+        bad_rel = {what: errs(out, want)[0] for what, out in bad.items()}
+        print(f"probe check {name} [{card}] T={T}: rel err {rel:.3e} (limit {tol}), max abs "
+              f"err {absd:.3e}, ref rms {want[0].pow(2).mean().sqrt().item():.3e}; corrupted: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in bad_rel.items()), flush=True)
+        check(rel <= tol, f"probe {name} kernel vs plain at T={T}: {rel}")
+        for what, v in bad_rel.items():
+            check(v > tol, f"the probe check of {name} passes a kernel with {what}")
+        r = report[(kind, key)]
+        r["max_abs_err"] = max(r["max_abs_err"], absd)
+        r["rel_err"] = max(r["rel_err"], rel)
+        r["launches"] = launches[(kind, key)]
+
+    # P2 and P3 at the probes' constants, with each other's cond rule
+    for kind, wrong in (("resident", "layer"), ("streamed", "step")):
+        kern, _, tol = runs(kind, None)
+        v = errs(kern(w_body, pb.T, dil, cond_rule=wrong), wants[kind])[0]
+        print(f"probe check {kind} [{card}] T={pb.T}: the other's cond rule {v:.3e} "
+              f"(limit {tol})", flush=True)
+        check(v > tol, f"the {kind} check passes the other probe's cond rule at T={pb.T}")
+    return report
 
 
 def main() -> int:
@@ -590,12 +813,38 @@ def main() -> int:
 
     k3 = {"launches": launches8, "max_abs_err": err8, "ms": k8_ms, "plain_ms": p8_ms,
           "bound_ms": b8_ms, "bound_by": b8_by}
+
+    # 7. the tools/ probes ------------------------------------------------------
+    pr = probes(card, dev)
+
+    def probe_entry(name, src, replaces, kind, main_key):
+        """One report entry per probe kernel: the times of main_key's
+        variant (P1 dynamic, P4 stage 4), launches and errors over all."""
+        keys = [k for k in pr if k[0] == kind]
+        entry = {"name": name, "route": "cuda", "source": f"dvc_tpu_torch/kernels/csrc/{src}",
+                 "replaces": replaces, "launches": sum(pr[k]["launches"] for k in keys),
+                 "max_abs_err": max(pr[k]["max_abs_err"] for k in keys),
+                 **{f: pr[(kind, main_key)][f] for f in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by")},
+                 "library_ms": None}  # no single PyTorch call runs these recurrences
+        if len(keys) > 1:
+            entry["variants"] = {str(k[1]): {f: pr[k][f] for f in ("launches", "ms", "plain_ms",
+                                                                    "bound_ms", "rel_err")}
+                                 for k in keys}
+        return entry
+
     src = "dvc_tpu_torch/kernels/csrc/wavenet_step.cu"
     report = {"kernels": [  # library_ms: no single PyTorch call computes AR generation
         {"name": "wavenet_generate", "route": "cuda", "source": src,
          "replaces": "dvc_tpu/kernels/wavenet_step.py:415", **k1, "library_ms": None},
         {"name": "wavenet_generate_int8", "route": "cuda", "source": src,
          "replaces": "dvc_tpu/kernels/wavenet_step.py:771", **k3, "library_ms": None},
+        probe_entry("probe_taps", "bench_taps.cu", "tools/bench_taps.py:66", "taps", "dynamic"),
+        probe_entry("probe_resident", "probe_body.cu", "tools/bench_body.py:95", "resident",
+                    None),
+        probe_entry("probe_streamed", "probe_body.cu", "tools/bench_body.py:165", "streamed",
+                    None),
+        probe_entry("probe_body2", "probe_body.cu", "tools/bench_body2.py:123", "body2", 4),
     ]}
     print(json.dumps(report), flush=True)
     print(f"card: {card}", flush=True)

@@ -58,19 +58,24 @@ def build(name: str) -> Path:
     its path.  The compiler's report (ptxas registers, shared memory,
     spills) is kept beside it as <library>.log."""
     out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not out.exists():
+        compile_library(CSRC / f"{name}.cu", out)
+    return out
+
+
+def compile_library(src: Path, out: Path) -> None:
+    """nvcc ``src`` into the shared library ``out`` (written whole or not at
+    all), with ptxas's report in ``out``'s .log."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+        raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, out)
-    return out
 
 
 def build_all() -> dict[str, float]:

@@ -107,6 +107,21 @@ def wavenet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Te
     return sd
 
 
+def probe_weights_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The tools/ probes' weights (name -> array) -> torch tensors of the
+    same dtype, bit for bit.  ``np.asarray`` of a JAX bfloat16 array is an
+    ml_dtypes bfloat16 array, which ``torch.from_numpy`` rejects: it goes
+    through its 16-bit pattern and ``.view(torch.bfloat16)``."""
+    out = {}
+    for name, a in tree.items():
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            out[name] = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(a.copy())
+    return out
+
+
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
     """A .pth state dict, unwrapped from a {"state_dict": ...} or
     {"model_state": ...} container."""

@@ -19,7 +19,9 @@ MODULES = [
     "dvc_tpu_torch.models.wavenet", "dvc_tpu_torch.kernels._build",
     "dvc_tpu_torch.kernels.wavenet_step", "dvc_tpu_torch.convert.vocode",
     "dvc_tpu_torch.convert.conversion", "dvc_tpu_torch.train.checkpoint",
-    "dvc_tpu_torch.serve", "dvc_tpu_torch.cli.run",
+    "dvc_tpu_torch.serve", "dvc_tpu_torch.cli.run", "dvc_tpu_torch.tools._common",
+    "dvc_tpu_torch.tools.bench_taps", "dvc_tpu_torch.tools.bench_body",
+    "dvc_tpu_torch.tools.bench_body2", "dvc_tpu_torch.tools.ablate_body",
 ]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dvc_tpu")
@@ -36,7 +38,7 @@ def test_every_module_is_listed():
     assert on_disk - set(MODULES) <= {
         "dvc_tpu_torch.utils", "dvc_tpu_torch.ops", "dvc_tpu_torch.models",
         "dvc_tpu_torch.kernels", "dvc_tpu_torch.convert", "dvc_tpu_torch.train",
-        "dvc_tpu_torch.cli"}
+        "dvc_tpu_torch.cli", "dvc_tpu_torch.tools"}
 
 
 def test_import_pulls_in_no_jax_subprocess():
