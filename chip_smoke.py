@@ -13,9 +13,11 @@ Phases; any failure exits non-zero before a result line is printed:
             above 0.05 here, above 0.02 at the main path's shapes): B in
             {1, 4}, T = 1024, float32 weights (atol 5e-5) and bf16 weights
             (atol 0.05); two corrupted weight packs (a wrong ring tap, a
-            dropped residual) that the float32 limit must reject;
+            dropped residual) that the float32 limit must reject; float32
+            at B = 9, T = 256, across the row tile of 8 (atol 5e-5);
             the stochastic mode (finite, in [-1, 1], seeded: repeatable,
-            different per seed); the kernel's MoL sampler alone against
+            different per seed; every block of the persistent kernel drew
+            the same samples); the kernel's MoL sampler alone against
             sample_from_mol's moments;
   3. main   the serving path at full width: a synthetic 2-speaker mel corpus
             made with the port's melspectrogram, a full-size DisentangledVAE
@@ -23,9 +25,13 @@ Phases; any failure exits non-zero before a result line is printed:
             CUDA vocoder, and 3 concurrent POST /convert of 0.5 s wavs; the
             VAE on the card against the same VAE on the CPU;
   4. shapes the kernel against its plain version at the shapes the main path
-            gave it, float32 and bf16 weights at the limits above, timed with
-            CUDA events;
-  5. profile device time by kernel and the device's idle share, bf16 weights;
+            gave it, float32 and bf16 weights at the limits above (every
+            block's draws equal; the timed call's output is the one
+            compared, and equals the check run's), timed with CUDA events;
+  5. plan    each dtype's block plan (blocks, rows a block, row tile,
+            resident layers and bytes) and the barrier floor; us per sample
+            step for bf16 and int8 at B in {1, 3, 4, 8}, beside the per-launch
+            design's; the share of each phase in block 0's cycles;
   6. int8   int8 weight streaming (the port of the TPU's quantized streamed
             kernel): (i) the fine check at a narrow width (8 layers, 64
             channels, final1 in float32, first_conv zeroed so the sampled
@@ -33,12 +39,21 @@ Phases; any failure exits non-zero before a result line is printed:
             T = 1024, with a pack whose tap scales are swapped in one layer
             rejected; (ii) the coarse check at full width, B in {1, 4},
             T = 1024 (atol 0.05), with the same swap in every layer
-            reported; (iii) stochastic mode; (iv) its main path, generate(...,
-            quantize_int8=True) on 3 x 64 mel frames at full width, timed,
-            launches counted; (v) the kernel against its plain version at
-            that path's shape, full width, in (i)'s setup (first_conv
-            zeroed, final1 in float32), with packs whose scales are wrong
-            rejected; (vi) its profile;
+            reported; (iii) stochastic mode (every block's draws equal);
+            (iv) its main path, generate(..., quantize_int8=True) on 3 x 64
+            mel frames at full width, timed, launches counted; (v) the
+            kernel against its plain version at that path's shape, full
+            width, with first_conv zeroed as in (i): the int8 pack with
+            final1 in float32 against the plain version, with packs whose
+            scales are wrong rejected; the bf16 pack and generate's int8
+            pack (bf16 final1), the packs the main paths run, against the
+            open-loop plain version (all steps at once, itself held to the
+            plain version on the first pack), every block's draws equal,
+            with packs with a wrong ring tap, zeroed skip/out rows or
+            final1's skip inputs reversed rejected; (vi) the profiler's
+            records of one bf16 and one int8 main-path generate call:
+            exactly one sampling-kernel launch each, its device time and
+            the idle share;
   7. probes the tools/ Pallas probes as CUDA kernels (dvc_tpu_torch.tools):
             P1 bench_taps (modes dynamic, static, compute), P2 resident and
             P3 streamed bench_body, P4 bench_body2 (stages 0-4). (i) their
@@ -95,9 +110,18 @@ INT8_FINE_ATOL = 6e-3  # int8 kernel vs plain at the narrow width, feedback cut:
 INT8_FULL_ATOL = 0.013  # the same at full width at the main path's shape: about
 INT8_FULL_RMS = 3e-3    # twice the max and rms errors measured; the bf16 noise
                         # there is dense, so the rms holds mid-stack faults (PERF.md)
+MAIN_NOFB_ATOL = 0.065  # the bf16 pack and generate's int8 pack (bf16 final1) at
+MAIN_NOFB_RMS = 0.0105  # the main path's shape, feedback cut, against the open-loop
+                        # plain version: about twice the max and rms errors measured
+                        # (bf16 skip sums rounded before final1 flip; PERF.md), under
+                        # the rms of layer 12's skip/out rows zeroed
 NARROW = dict(layers=8, stacks=2, residual_channels=64, gate_channels=64,
               skip_out_channels=32)  # int8-aligned: R, C = 80 and G/2 whole vectors
 SEED = 0
+BARRIER_US = 1.14  # one grid barrier on an H100 (tools/ablate_body, PERF.md section 6)
+PREV_US = {  # us per sample step of the per-launch design (T x (2L + 2) launches), PERF.md
+    ("bfloat16", 1): 322.4, ("bfloat16", 3): 469.5, ("bfloat16", 4): 551.5,
+    ("int8", 1): 301.3, ("int8", 3): 424.6, ("int8", 4): 494.0}
 PROBE_F32_TOL = 1e-4   # P1, float32, relative to max |ref|: the kernel's other f32 sum
                        # order reads up to 7e-6, corrupted kernels 0.2 and more (PERF.md)
 PROBE_BF16_TOL = 5e-3  # P2-P4, bf16 ring and gate, relative to max |ref|: flipped bf16
@@ -191,6 +215,27 @@ def int8_corrupted(packed):
             "tap scales swapped in every layer": (swapped_scales(packed, slice(None)), False)}
 
 
+def nofb_corrupted(packed):
+    """Packs that the main-shape check with the feedback cut must reject or
+    reports: {name: (pack, whether it must fail)}.  Layer 3's and layer 10's
+    faults reach the head scaled down by the legacy sqrt(1/2) skip sum and
+    hide in the bf16 noise (PERF.md)."""
+    S = packed["cfg"].skip_out_channels
+    no_l12 = dict(packed, w_so=packed["w_so"].clone())
+    no_l12["w_so"][12] = 0
+    no_res = dict(packed, w_so=packed["w_so"].clone())
+    no_res["w_so"][10, S:] = 0
+    taps = {}
+    for li in (23, 3):
+        taps[li] = dict(packed, dil=packed["dil"].copy())
+        taps[li]["dil"][li] //= 2
+    return {"layer 12's skip/out rows zeroed": (no_l12, True),
+            "layer 23's ring taps at half its dilation": (taps[23], True),
+            "final1's skip inputs reversed": (dict(packed, w_f1=packed["w_f1"].flip(1)), True),
+            "layer 10's residual dropped": (no_res, False),
+            "layer 3's ring taps at half its dilation": (taps[3], False)}
+
+
 def bound(packed, cond):
     """(bound_ms, bound_by): the larger of moving every input once (int8
     codes and their scales included) and the output once at the memory
@@ -217,40 +262,43 @@ def stream_us(packed) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e6
 
 
-def profile(ws, packed, short, card, name):
-    """Device time by sub-kernel and the device's idle share over one
-    wavenet_generate call on `short` (one row, a few hundred steps).  The
-    profiler's kernel records are counted against the launches the call
-    makes (L per step of each layer kernel, one of final1 and of head).  The
-    busy time is that of the records; launches the profiler did not record
-    are counted and their time at their kernel's mean is printed beside."""
-    steps, L = short.shape[1], packed["cfg"].layers
-    want = {"layer_in": L * steps, "layer_out": L * steps, "final1": steps, "head": steps}
-    ws.wavenet_generate(packed, short, 0, True)
+def profile(fn, card, name, steps):
+    """One call of fn (a main-path call of the sampler) under torch.profiler:
+    the device time of its single wavenet_persistent record, the call's
+    wall time and the device's idle share over the call.  Fails unless the
+    call made exactly one launch of the sampling kernel."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, prof_ms = events_ms(lambda: ws.wavenet_generate(packed, short, 0, True))
-    by_kernel = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0.0)
-        for part in ("layer_in", "layer_out", "final1", "head", "init_h", "Memset"):
-            if dev_us > 0 and part in e.key:
-                n_, us_ = by_kernel.get(part, (0, 0.0))
-                by_kernel[part] = (n_ + e.count, us_ + dev_us)
-    if not all(k in by_kernel for k in want):
-        print(f"profile [{card}] {name}: the profiler recorded no device time for some "
-              f"kernels (not measured)", flush=True)
+        _, wall_ms = events_ms(fn)
+    recs = [e for e in prof.key_averages() if "wavenet_persistent" in e.key]
+    n = sum(e.count for e in recs)
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in recs)
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    check(n == 1, f"{name}: {n} records of the sampling kernel in one call, not 1")
+    if dev_us <= 0:
+        print(f"profile [{card}] {name}: 1 kernel record, no device time recorded (not "
+              f"measured)", flush=True)
         return
-    busy_us = sum(us for _, us in by_kernel.values())
-    missing = sum(want[k] - n for k, (n, _) in by_kernel.items() if k in want)
-    missing_us = sum((want[k] - n) * us / n for k, (n, us) in by_kernel.items() if k in want)
-    parts = ", ".join(f"{k} {us / n:.2f} us x {n}" + (f"/{want[k]}" if k in want else "")
-                      for k, (n, us) in by_kernel.items())
-    print(f"profile [{card}] B=1 T={steps} {name}: {prof_ms * 1e3 / steps:.1f} us/sample-step "
-          f"wall, device busy {busy_us / steps:.1f} us/step (idle share "
-          f"{1 - busy_us / (prof_ms * 1e3):.3f}); launches recorded/made: {parts}; "
-          f"{missing} unrecorded, {missing_us / steps:.2f} us/step at their kernels' means",
-          flush=True)
+    print(f"profile [{card}] {name}: 1 launch of wavenet_persistent, device time "
+          f"{dev_us / 1e3:.1f} ms ({dev_us / steps:.1f} us/sample-step), call wall "
+          f"{wall_ms:.1f} ms, device busy {busy_us / 1e3:.1f} ms (idle share "
+          f"{1 - busy_us / (wall_ms * 1e3):.3f})", flush=True)
+
+
+def phase_split(stamps, layers) -> dict[str, float]:
+    """Share of block 0's SM cycles by phase over the stamped steps of a
+    wavenet_generate_checked call (the first step left out: it also waits
+    for the resident weights' copies)."""
+    s = stamps[1:].double()
+    i = torch.arange(layers, device=s.device) * 4
+    end = 4 * layers
+    spans = {"in": (i, i + 1), "barrier (a)": (i + 1, i + 2), "out": (i + 2, i + 3),
+             "barrier (b)": (i + 3, i + 4), "final1": ([end], [end + 1]),
+             "barrier (final1)": ([end + 1], [end + 2]), "head": ([end + 2], [end + 3])}
+    cyc = {k: (s[:, b] - s[:, a]).sum().item() for k, (a, b) in spans.items()}
+    total = sum(cyc.values())
+    return {k: v / total for k, v in cyc.items()}
 
 
 def check(cond_ok: bool, what: str):
@@ -451,6 +499,7 @@ def probes(card, dev):
         r["max_abs_err"] = max(r["max_abs_err"], absd)
         r["rel_err"] = max(r["rel_err"], rel)
         r["launches"] = launches[(kind, key)]
+        r["us_per_step"] = timed[(kind, key)]["us_per_step"]
 
     # P2 and P3 at the probes' constants, with each other's cond rule
     for kind, wrong in (("resident", "layer"), ("streamed", "step")):
@@ -519,17 +568,38 @@ def main() -> int:
             if dtype == torch.float32:
                 check(bad_err > atol, f"the float32 check passes a pack with a {what}")
 
+    # the float32 fine check across the row tile: 9 batch rows, tiles of 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32 = ws.pack_wavenet_params(det, torch.float32, dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    frames = torch.rand(9, 256 // det.hop, vcfg.cin_channels, device=dev, generator=g)
+    with torch.inference_mode():
+        cond9 = det.upsample(frames).contiguous()
+    tile9 = ws.block_plan(f32, 9, sms)["tile"]
+    plain = ws.wavenet_generate_plain(f32, cond9, 0, True)
+    err = (ws.wavenet_generate(f32, cond9, 0, True) - plain).abs().max().item()
+    print(f"kernel vs plain [{card}] float32 B=9 T={cond9.shape[1]} (row tile {tile9}): "
+          f"max_abs_err {err:.3e} (atol {F32_ATOL}); trajectory std {plain.std().item():.4f}",
+          flush=True)
+    check(tile9 < 9, "the B=9 check does not cross the row tile")
+    check(math.isfinite(err) and err <= F32_ATOL, f"float32 B=9 kernel vs plain {err}")
+    check(plain.std().item() > TRAJ_STD, "doctored B=9 trajectory does not move")
+
     rnd = seeded(lambda: WaveNet(vcfg), SEED + 2).to(dev).eval()
     packed = ws.pack_wavenet_params(rnd, torch.bfloat16, dev)
     s1 = ws.wavenet_generate(packed, cond, 1)
     s1b = ws.wavenet_generate(packed, cond, 1)
     s2 = ws.wavenet_generate(packed, cond, 2)
+    s1c, draws, _ = ws.wavenet_generate_checked(packed, cond, 1)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(s1).all()) and s1.abs().max().item() <= 1.0,
           "stochastic output not finite in [-1, 1]")
     check(torch.equal(s1, s1b), "same seed, different samples")
     check(not torch.equal(s1, s2), "different seeds, same samples")
-    print("stochastic mode: finite in [-1, 1], repeatable per seed, seeds differ", flush=True)
+    check(torch.equal(s1c, s1) and bool((draws == s1[None]).all()),
+          "the blocks' stochastic draws disagree")
+    print(f"stochastic mode: finite in [-1, 1], repeatable per seed, seeds differ; all "
+          f"{draws.shape[0]} blocks drew the same {draws[0].numel()} samples", flush=True)
 
     nr = vcfg.out_channels // 3
     means = torch.linspace(-0.9, 0.9, nr)
@@ -658,8 +728,10 @@ def main() -> int:
     # whose numbers go into the report
     for dtype, atol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
         packed = ws.pack_wavenet_params(det, dtype, dev)
-        kern, _ = events_ms(lambda: ws.wavenet_generate(packed, cond, 0, True))
-        _, k_ms = events_ms(lambda: ws.wavenet_generate(packed, cond, 0, True))
+        checked, draws, _ = ws.wavenet_generate_checked(packed, cond, 0, True)
+        check(bool((draws == checked[None]).all()), f"{dtype}: the blocks' draws disagree")
+        kern, k_ms = events_ms(lambda: ws.wavenet_generate(packed, cond, 0, True))
+        check(torch.equal(kern, checked), f"{dtype}: the timed call differs from the checked one")
         plain, p_ms = events_ms(lambda: ws.wavenet_generate_plain(packed, cond, 0, True))
         err = (kern - plain).abs().max().item()
         b_ms, b_by = bound(packed, cond)
@@ -674,9 +746,39 @@ def main() -> int:
     k1 = {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
           "bound_ms": b_ms, "bound_by": b_by}  # bf16: the main path's weights
 
-    # 5. where the kernel's time goes: device time by kernel, device idle share
-    short = cond[:1, :256].contiguous()
-    profile(ws, packed, short, card, "bf16")
+    # 5. the block plans; us per step by batch; where a step's time goes -----
+    q8 = ws.pack_wavenet_params(det, torch.bfloat16, dev, quantize=True)
+    f32 = ws.pack_wavenet_params(det, torch.float32, dev)
+    for name, pk in (("float32", f32), ("bfloat16", packed), ("int8", q8)):
+        pl = ws.block_plan(pk, b_main, sms)
+        print(f"block plan {name} B={b_main} on {sms} SMs: {pl['blocks']} blocks of "
+              f"{pl['pairs']} gate pairs, {pl['rows']} skip/out rows, {pl['cols']} final1 "
+              f"columns; row tile {pl['tile']}; {pl['resident_layers']} of {vcfg.layers} "
+              f"layers resident, {pl['resident_bytes']} B of weights, scales and biases "
+              f"resident a block ({pl['smem_bytes']} B of shared memory); "
+              f"{pl['streamed_bytes_per_step'] / 1e6:.1f} MB a step streamed", flush=True)
+    n_bar = 2 * vcfg.layers + 1
+    print(f"barrier floor: {n_bar} grid barriers a step x {BARRIER_US} us = "
+          f"{n_bar * BARRIER_US:.1f} us a sample step", flush=True)
+    sweep = {}
+    for name, pk in (("bfloat16", packed), ("int8", q8)):
+        for b in (1, 3, 4, 8):
+            g = torch.Generator(device=dev).manual_seed(50 + b)
+            frames = torch.rand(b, 1024 // det.hop, vcfg.cin_channels, device=dev, generator=g)
+            with torch.inference_mode():
+                cond_b = det.upsample(frames).contiguous()
+            ws.wavenet_generate(pk, cond_b, 0, True)
+            _, ms = events_ms(lambda: ws.wavenet_generate(pk, cond_b, 0, True))
+            sweep[(name, b)] = ms * 1e3 / cond_b.shape[1]
+            prev = PREV_US.get((name, b))
+            print(f"per step [{card}] {name} B={b} T={cond_b.shape[1]}: {sweep[(name, b)]:.1f} "
+                  f"us/sample-step; per-launch design " +
+                  (f"{prev} (PERF.md)" if prev else "not measured"), flush=True)
+        _, _, stamps = ws.wavenet_generate_checked(pk, cond[:, :512].contiguous(), 0, True,
+                                                   stamp_steps=512)
+        split = phase_split(stamps, vcfg.layers)
+        print(f"phase split [{card}] {name} B={b_main}: share of block 0's cycles "
+              + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
 
     # 6. int8 weight streaming -------------------------------------------------
     # (i) the fine check.  int8 activations are bf16 whatever the weights, so
@@ -709,7 +811,6 @@ def main() -> int:
     check(bad_err > INT8_FINE_ATOL, "the int8 fine check passes swapped tap scales")
 
     # (ii) the coarse check at full width; bf16 final1, generate's default
-    q8 = ws.pack_wavenet_params(det, torch.bfloat16, dev, quantize=True)
     for b in (1, 4):
         g = torch.Generator(device=dev).manual_seed(10 + b)  # phase 2's frames
         frames = torch.rand(b, 1024 // det.hop, vcfg.cin_channels, device=dev, generator=g)
@@ -737,13 +838,16 @@ def main() -> int:
     s1 = ws.wavenet_generate(q8r, cond_b, 1)
     s1b = ws.wavenet_generate(q8r, cond_b, 1)
     s2 = ws.wavenet_generate(q8r, cond_b, 2)
+    s1c, draws, _ = ws.wavenet_generate_checked(q8r, cond_b, 1)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(s1).all()) and s1.abs().max().item() <= 1.0,
           "int8 stochastic output not finite in [-1, 1]")
     check(torch.equal(s1, s1b), "int8: same seed, different samples")
     check(not torch.equal(s1, s2), "int8: different seeds, same samples")
-    print("int8 stochastic mode: finite in [-1, 1], repeatable per seed, seeds differ",
-          flush=True)
+    check(torch.equal(s1c, s1) and bool((draws == s1[None]).all()),
+          "int8: the blocks' stochastic draws disagree")
+    print(f"int8 stochastic mode: finite in [-1, 1], repeatable per seed, seeds differ; all "
+          f"{draws.shape[0]} blocks drew the same {draws[0].numel()} samples", flush=True)
 
     # (iv) its main path: generate on mel frames, at full width
     voc8 = seeded(lambda: WaveNet(vcfg), SEED + 4).to(dev).eval()  # phase 3's weights
@@ -769,10 +873,14 @@ def main() -> int:
           f"frames -> {tuple(wav8.shape)} in {main8_s:.2f} s; int8 launches {launches8}",
           flush=True)
 
-    # (v) the int8 kernel against its plain version at that path's shape, at
-    # full width, in the fine check's setup: first_conv zeroed, final1 in
-    # float32.  Its layer kernels are those of generate's default pack (q8),
-    # whose time at this shape is printed beside.
+    # (v) the kernel against its plain version at that path's shape, at full
+    # width, with the output feedback cut (first_conv zeroed), so that no
+    # bf16 rounding flip is fed back and the limits can be tight.  First the
+    # int8 pack with final1 in float32 (the layer kernels alone) against
+    # wavenet_generate_plain; then the packs the two main paths run, bf16 and
+    # int8 with bf16 final1 (generate's default), against
+    # wavenet_open_loop_plain: the same function over all steps at once,
+    # held here to wavenet_generate_plain on the first pack.
     _, q8_ms = events_ms(lambda: ws.wavenet_generate(q8, cond, 0, True))
     nofb = copy.deepcopy(det)
     with torch.no_grad():
@@ -781,35 +889,64 @@ def main() -> int:
     kern8, _ = events_ms(lambda: ws.wavenet_generate(f8, cond, 0, True))
     _, k8_ms = events_ms(lambda: ws.wavenet_generate(f8, cond, 0, True))
     plain8, p8_ms = events_ms(lambda: ws.wavenet_generate_plain(f8, cond, 0, True))
-    def max_rms(out):
-        d = out - plain8
-        return d.abs().max().item(), d.pow(2).mean().sqrt().item()
-
-    def passes(e_max, e_rms):
-        return math.isfinite(e_max) and e_max <= INT8_FULL_ATOL and e_rms <= INT8_FULL_RMS
-
-    err8, rms8 = max_rms(kern8)
+    open8, o8_ms = events_ms(lambda: ws.wavenet_open_loop_plain(f8, cond))
+    ol_max = (open8 - plain8).abs().max().item()
+    ol_rms = (open8 - plain8).pow(2).mean().sqrt().item()
     b8_ms, b8_by = bound(f8, cond)
-    std8 = plain8.std().item()
-    limits = f"(atol {INT8_FULL_ATOL}, rms {INT8_FULL_RMS})"
     print(f"kernel at main-path shapes [{card}] cond {tuple(cond.shape)} int8, final1 float32, "
           f"no feedback: {k8_ms:.1f} ms ({k8_ms * 1e3 / cond.shape[1]:.1f} us/sample-step; "
           f"generate's bf16-final1 pack {q8_ms:.1f} ms), plain {p8_ms:.1f} ms, bound "
-          f"{b8_ms:.3f} ms ({b8_by}), max_abs_err {err8:.3e}, rms err {rms8:.3e} {limits}; "
-          f"trajectory std {std8:.4f}", flush=True)
-    check(passes(err8, rms8), f"main-shape int8 kernel vs plain {err8} (rms {rms8})")
-    check(std8 > MAIN_STD, "doctored int8 trajectory does not move")
-    rejected = []
-    for what, (bad, must) in int8_corrupted(f8).items():
-        bad_max, bad_rms = max_rms(ws.wavenet_generate(bad, cond, 0, True))
-        print(f"corrupted int8 pack [main-path shape] {what}: max_abs_err {bad_max:.3e}, rms "
-              f"err {bad_rms:.3e} {limits}{'' if must else ', reported'}", flush=True)
-        rejected.append((what, not must or not passes(bad_max, bad_rms)))
-    for what, ok in rejected:
-        check(ok, f"the full-width int8 check passes a pack with {what}")
+          f"{b8_ms:.3f} ms ({b8_by}); the open-loop plain version ({o8_ms:.1f} ms) against "
+          f"the plain version: max_abs_err {ol_max:.3e}, rms err {ol_rms:.3e} (the kernel's "
+          f"limits, atol {INT8_FULL_ATOL}, rms {INT8_FULL_RMS})", flush=True)
+    check(math.isfinite(ol_max) and ol_max <= INT8_FULL_ATOL and ol_rms <= INT8_FULL_RMS,
+          f"the open-loop plain version disagrees with the plain version: {ol_max} "
+          f"(rms {ol_rms})")
 
-    # (vi) where its time goes
-    profile(ws, q8, short, card, "int8")
+    def held(name, kern, ref, atol, rms, bad):
+        """kern against ref within atol (max) and rms, and every corrupted
+        pack of bad {what: (pack, whether it must fail)} rejected; returns
+        the max error."""
+        def errs(out):
+            d = out - ref
+            return d.abs().max().item(), d.pow(2).mean().sqrt().item()
+
+        def passes(e):
+            return math.isfinite(e[0]) and e[0] <= atol and e[1] <= rms
+
+        err, std = errs(kern), ref.std().item()
+        limits = f"(atol {atol}, rms {rms})"
+        print(f"kernel vs plain at main-path shapes [{card}] {name}, no feedback: max_abs_err "
+              f"{err[0]:.3e}, rms err {err[1]:.3e} {limits}; trajectory std {std:.4f}",
+              flush=True)
+        check(passes(err), f"main-shape {name} kernel vs plain {err[0]} (rms {err[1]})")
+        check(std > MAIN_STD, f"doctored {name} trajectory does not move")
+        rejected = []
+        for what, (pack, must) in bad.items():
+            e = errs(ws.wavenet_generate(pack, cond, 0, True))
+            print(f"corrupted {name} pack [main-path shape] {what}: max_abs_err {e[0]:.3e}, "
+                  f"rms err {e[1]:.3e} {limits}{'' if must else ', reported'}", flush=True)
+            rejected.append((what, not must or not passes(e)))
+        for what, ok in rejected:
+            check(ok, f"the main-shape {name} check passes a pack with {what}")
+        return err[0]
+
+    err8 = held("int8, final1 float32", kern8, plain8, INT8_FULL_ATOL, INT8_FULL_RMS,
+                int8_corrupted(f8))
+    for name, pk in (("bfloat16", ws.pack_wavenet_params(nofb, torch.bfloat16, dev)),
+                     ("int8", ws.pack_wavenet_params(nofb, torch.bfloat16, dev, quantize=True))):
+        kern, draws, _ = ws.wavenet_generate_checked(pk, cond, 0, True)
+        check(bool((draws == kern[None]).all()), f"{name}, no feedback: the blocks' draws disagree")
+        held(name, kern, ws.wavenet_open_loop_plain(pk, cond), MAIN_NOFB_ATOL, MAIN_NOFB_RMS,
+             nofb_corrupted(pk))
+
+    # (vi) one launch a call: the profiler's records of both main paths' calls
+    steps = f_main * hop
+    ws.generate(voc8, mels[:, :2], 7)  # warm-up: the bf16 pack
+    profile(lambda: ws.generate(voc8, mels, 7), card, f"bf16 main path, generate on "
+            f"{tuple(mels.shape)} mel frames", steps)
+    profile(lambda: gen8(mels), card, f"int8 main path, generate(quantize_int8=True) on "
+            f"{tuple(mels.shape)} mel frames", steps)
 
     k3 = {"launches": launches8, "max_abs_err": err8, "ms": k8_ms, "plain_ms": p8_ms,
           "bound_ms": b8_ms, "bound_by": b8_by}
@@ -832,6 +969,10 @@ def main() -> int:
                                                                     "bound_ms", "rel_err")}
                                  for k in keys}
         return entry
+
+    p2_us = pr[("resident", None)]["us_per_step"]
+    print(f"B=8 against P2 [{card}]: bfloat16 {sweep[('bfloat16', 8)]:.1f}, int8 "
+          f"{sweep[('int8', 8)]:.1f} us/sample-step; P2 in this run {p2_us:.1f}", flush=True)
 
     src = "dvc_tpu_torch/kernels/csrc/wavenet_step.cu"
     report = {"kernels": [  # library_ms: no single PyTorch call computes AR generation

@@ -59,8 +59,8 @@
 // the next h), each with its barrier.  cudaLaunchCooperativeKernel refuses a
 // grid that cannot be co-resident instead of hanging.  P3 runs the same two
 // phases on the same grid as two kernel launches per layer, from a host loop
-// in C, as the serving kernel's layer_in / layer_out do: the gap between P2
-// and P3 is the price of a launch against a grid barrier.  The step-start
+// in C: the gap between P2 and P3 is the price of a launch against a grid
+// barrier.  The step-start
 // cond of P2 and P4 stage 0 is a snapshot of h[:, :C] that block 0 writes
 // while the first layer reads h itself.  Data written inside the kernel is
 // read with ld.global.cg (L2, coherent across SMs); the weights through the

@@ -1,13 +1,14 @@
 """WaveNet autoregressive MoL generation: the CUDA kernel's wrapper, its
-packed weights, its plain PyTorch version and ``generate``, the port of
-dvc_tpu's ``pallas_generate``.
+block plan, its packed weights, its plain PyTorch version and ``generate``,
+the port of dvc_tpu's ``pallas_generate``.
 
 Replaces dvc_tpu/kernels/wavenet_step.py's Pallas kernels: the resident one
-(K1+K2: ``_resident_call`` :387-429 with ``_make_kernel_resident`` and
-``_mol_sample``) and the streamed one (K3: ``_streamed_call`` :705-787 with
+(K1+K2: ``_resident_call`` :388-429 with ``_make_kernel_resident`` and
+``_mol_sample``) and the streamed one (K3: ``_streamed_call`` :706-787 with
 ``_make_kernel``, whose int8 weight streaming is the int8 pack below).  The
-kernel is csrc/wavenet_step.cu (design, bound and races are described
-there); this module holds
+kernel is csrc/wavenet_step.cu: one persistent cooperative launch per call,
+each block's weight rows resident in shared memory (design, bound and races
+are described there); this module holds
 
   * ``generate`` — mel frames -> waveform: upsample, pack (memoized) and
     ``wavenet_generate``, as ``pallas_generate`` (:612-702) does;
@@ -15,12 +16,18 @@ there); this module holds
     output-major, in the weight dtype or as int8 codes with float32 scales
     (float32 biases, w_first and final2);
   * ``pack_wavenet_params_cached`` — a memo keyed like dvc_tpu's
-    ``pack_wavenet_params_cached`` (:121-142), so the ~49 MB pack and upload
+    ``pack_wavenet_params_cached`` (:124-142), so the ~49 MB pack and upload
     happen once per weight set, never once per request;
+  * ``block_plan`` — which rows each block owns, which layers stay resident
+    in its shared memory, the row tile and the shared-memory bytes: the
+    kernel takes the plan and refuses one whose bytes are not its own;
   * ``wavenet_generate`` — the wrapper: a CUDA tensor launches the kernel or
     raises; a CPU tensor runs the plain version;
   * ``wavenet_generate_plain`` — the same arithmetic in PyTorch, cast for
     cast, ring for ring;
+  * ``wavenet_open_loop_plain`` — its deterministic function for a pack
+    with the output feedback cut, over all steps at once (for checks at
+    long T);
   * ``mol_sample`` — a launch of the kernel's MoL sampler alone over given
     MoL parameters (the check of K2 against ``sample_from_mol``).
 
@@ -53,6 +60,12 @@ from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
 SQRT_HALF = math.sqrt(0.5)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INT8_VEC = 16  # int8 codes in one 16-byte vector
+# the kernel's launch shape and the card's shared memory (csrc/wavenet_step.cu)
+MAX_SMEM = 232_448   # bytes of shared memory a block may use on an H100
+STATIC_SMEM = 1_024  # of which the plan sets aside for the kernel's static arrays
+MAX_TILE = 8         # batch rows per pass through the weights
+MAX_PAIRS = 4        # gate pairs a block: the 8 warps split evenly over its pairs
+SEGS = 4             # int8 w_in scale segments
 
 _PACK_CACHE: dict = {}
 
@@ -208,6 +221,72 @@ def _act_dtype(packed: dict) -> torch.dtype:
     return torch.bfloat16 if wdt == torch.int8 else wdt
 
 
+def _r16(n: int) -> int:
+    return _ceil(n, 16)
+
+
+def block_plan(packed: dict, batch: int, sms: int) -> dict[str, Any]:
+    """How the kernel splits the packed WaveNet over a card with ``sms``
+    streaming multiprocessors for a batch of ``batch`` rows.
+
+    Each block owns ``pairs`` consecutive gate-column pairs (j, j + G/2)
+    (a power of two up to 4, the fewest that cover G/2 with at most ``sms``
+    blocks), and ``rows`` consecutive skip/out rows and ``cols`` consecutive
+    final1 columns, the fewest that cover S + R and S with ``blocks``
+    blocks; block k owns pairs [k * pairs, (k + 1) * pairs), and so on.
+    Its shared memory holds, in the kernel's order, ``resident_layers``
+    layers of its rows (each ``layer_bytes``), a double buffer for the
+    layers streamed through it (when not all are resident), the biases
+    and int8 scales of every layer, its final1 columns, its skip and h
+    rows over the batch, the batch's draws and a staging tile of ``tile``
+    batch rows.  The
+    plan keeps every layer resident with the largest tile that allows it,
+    else the largest tile with as many resident layers as fit; it raises
+    ValueError when nothing fits ``MAX_SMEM`` (less ``STATIC_SMEM``)."""
+    L, R, G, S, C, K = _dims(packed)
+    G2 = G // 2
+    w_in, w_so, w_f1 = packed["w_in"], packed["w_so"], packed["w_f1"]
+    kip, g2p = w_in.shape[2], w_so.shape[2]
+    if batch < 1 or sms < 1:
+        raise ValueError(f"batch and sms must be positive, got {batch} and {sms}")
+    pairs = 1
+    while pairs * sms < G2:
+        pairs *= 2
+    if pairs > MAX_PAIRS:
+        raise ValueError(f"{G2} gate pairs need more than {MAX_PAIRS} a block on {sms} SMs")
+    blocks = -(-G2 // pairs)
+    rows, cols = -(-(S + R) // blocks), -(-S // blocks)
+    layer_bytes = _r16((2 * pairs * kip + rows * g2p) * w_in.element_size())
+    scales = 2 * pairs * SEGS + rows if w_in.dtype == torch.int8 else 0
+    consts = _r16(L * (scales + 2 * pairs + rows) * 4)  # scales and biases of every layer
+    f1 = _r16(cols * S * w_f1.element_size())
+    fixed = consts + f1 + _r16(rows * batch * 4) + _r16(batch * 4)
+    # a staging row in the type each phase's dots read; the head's fin | y in float32
+    asz, fsz = _act_dtype(packed).itemsize, w_f1.element_size()
+    width = max(kip * asz, g2p * asz, S * fsz, (S + K) * 4)
+    budget = MAX_SMEM - STATIC_SMEM
+
+    def total(tile, nres):
+        return (nres * layer_bytes + (2 * layer_bytes if nres < L else 0) + fixed
+                + _r16(tile * width))
+
+    tiles = range(min(MAX_TILE, batch), 0, -1)
+    choice = next(((tile, L) for tile in tiles if total(tile, L) <= budget), None)
+    if choice is None:
+        choice = next(((tile, min(L - 1, (budget - total(tile, 0)) // layer_bytes))
+                       for tile in tiles if total(tile, 0) <= budget), None)
+    if choice is None:
+        raise ValueError(f"the block plan does not fit {budget} bytes of shared memory: "
+                         f"{layer_bytes} B a layer, {fixed} B of biases, scales, final1 "
+                         f"and per-row state for B={batch}")
+    tile, nres = choice
+    return {"blocks": blocks, "pairs": pairs, "rows": rows, "cols": cols, "tile": tile,
+            "resident_layers": nres, "layer_bytes": layer_bytes,
+            "resident_bytes": nres * layer_bytes + consts + f1,
+            "streamed_bytes_per_step": (L - nres) * layer_bytes * blocks,
+            "smem_bytes": total(tile, nres)}
+
+
 # --- plain PyTorch version ---------------------------------------------------
 
 def _mol_mean(y_hat: torch.Tensor) -> torch.Tensor:
@@ -216,6 +295,23 @@ def _mol_mean(y_hat: torch.Tensor) -> torch.Tensor:
     sel = torch.argmax(y_hat[..., :nr_mix], dim=-1, keepdim=True)
     return torch.clamp(torch.gather(y_hat[..., nr_mix:2 * nr_mix], -1, sel)[..., 0],
                        -1.0, 1.0)
+
+
+def _plain_weights(packed: dict) -> dict[str, Any]:
+    """The packed layer weights in float32 as the plain versions read them:
+    int8 codes split per segment with their scales, else w_in and w_so."""
+    L, R, G, S, C, K = _dims(packed)
+    if packed["w_in"].dtype != torch.int8:
+        return {"w_in": packed["w_in"][:, :, :3 * R + C].float(),
+                "w_so": packed["w_so"].float()}
+    rs = _tap_stride(packed["cfg"], True)
+    w_in = packed["w_in"]
+    return {"w_taps": (w_in[:, :, :3 * rs].reshape(L, G, 3, rs)[..., :R]
+                       .permute(0, 2, 3, 1).float()),                    # (L, 3, R, G)
+            "s_taps": packed["s_in"][:, :3, None, :],                    # (L, 3, 1, G)
+            "w_c": w_in[:, :, 3 * rs:3 * rs + C].transpose(1, 2).float(),  # (L, C, G)
+            "s_c": packed["s_in"][:, 3, None, :],                        # (L, 1, G)
+            "w_so": packed["w_so"][:, :, :G // 2].float()}
 
 
 @torch.no_grad()
@@ -238,17 +334,12 @@ def wavenet_generate_plain(packed: dict, cond: torch.Tensor, seed: int = 0,
     dev = cond.device
     quant = packed["w_in"].dtype == torch.int8
     adt = _act_dtype(packed)
+    pw = _plain_weights(packed)
+    w_so = pw["w_so"]
     if quant:
-        rs = _tap_stride(cfg, True)
-        w_taps = (packed["w_in"][:, :, :3 * rs].reshape(L, G, 3, rs)[..., :R]
-                  .permute(0, 2, 3, 1).float())                      # (L, 3, R, G)
-        s_taps = packed["s_in"][:, :3, None, :]                      # (L, 3, 1, G)
-        w_c = packed["w_in"][:, :, 3 * rs:3 * rs + C].transpose(1, 2).float()  # (L, C, G)
-        s_c = packed["s_in"][:, 3, None, :]                          # (L, 1, G)
-        w_so = packed["w_so"][:, :, :G2].float()
+        w_taps, s_taps, w_c, s_c = pw["w_taps"], pw["s_taps"], pw["w_c"], pw["s_c"]
     else:
-        w_in = packed["w_in"][:, :, :3 * R + C].float()
-        w_so = packed["w_so"].float()
+        w_in = pw["w_in"]
     w_f1 = packed["w_f1"].float()
     f1dt = packed["w_f1"].dtype
     b_in, b_so = packed["b_in"], packed["b_so"]
@@ -291,6 +382,50 @@ def wavenet_generate_plain(packed: dict, cond: torch.Tensor, seed: int = 0,
     return out
 
 
+@torch.no_grad()
+def wavenet_open_loop_plain(packed: dict, cond: torch.Tensor) -> torch.Tensor:
+    """wavenet_generate_plain(packed, cond, deterministic=True) for a pack
+    whose w_first is zero, so that no sample is fed back: every step's input
+    h is b_first, and each layer runs over all B x T steps at once, its ring
+    taps being its own input h shifted by d and 2d steps (zero before the
+    first step).  The same casts and sums as the step loop; only the row
+    count of each product differs.  A reference for checks at long T, where
+    the step loop takes minutes."""
+    if bool(packed["w_first"].any()):
+        raise ValueError("the output feedback is not cut: w_first is not zero")
+    cfg: VocoderConfig = packed["cfg"]
+    L, R, G, S, C, K = _dims(packed)
+    G2 = G // 2
+    b, t_total, _ = cond.shape
+    quant = packed["w_in"].dtype == torch.int8
+    adt = _act_dtype(packed)
+    pw = _plain_weights(packed)
+    b_in, b_so = packed["b_in"], packed["b_so"]
+    scale = SQRT_HALF if cfg.legacy else 1.0
+    c = cond.to(adt)
+    h = packed["b_first"].expand(b, t_total, R)
+    skip = None
+    for li, d in enumerate(packed["dil"].tolist()):
+        hq = h.to(adt)
+        tap_2d, tap_d = (F.pad(hq, (0, 0, k, 0))[:, :t_total] for k in (2 * d, d))
+        if quant:
+            x3 = torch.stack([tap_2d, tap_d, hq]).float().reshape(3, b * t_total, R)
+            pc = (c.float() @ pw["w_c"][li]) * pw["s_c"][li]
+            pre = ((torch.bmm(x3, pw["w_taps"][li]) * pw["s_taps"][li]).sum(0)
+                   .reshape(b, t_total, G) + b_in[li] + pc)
+        else:
+            xin = torch.cat([tap_2d, tap_d, hq, c], -1).float()
+            pre = xin @ pw["w_in"][li].T + b_in[li]
+        gated = torch.tanh(pre[..., :G2]) * torch.sigmoid(pre[..., G2:])
+        so = gated.to(adt).float() @ pw["w_so"][li].T
+        so = torch.addcmul(b_so[li], so, packed["s_so"][li]) if quant else so + b_so[li]
+        h = (so[..., S:] + h) * SQRT_HALF
+        skip = so[..., :S] if skip is None else (skip + so[..., :S]) * scale
+    o = F.relu(F.relu(skip).to(packed["w_f1"].dtype).float() @ packed["w_f1"].float().T
+               + packed["b_f1"])
+    return _mol_mean(o @ packed["w_f2"].T + packed["b_f2"])
+
+
 # --- the kernel's wrappers ---------------------------------------------------
 
 _VP = ctypes.c_void_p
@@ -301,7 +436,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("wavenet_step")
     if not getattr(lib, "_dvc_typed", False):
         lib.dvc_wavenet_generate.argtypes = (
-            [_I] * 13 + [_VP, _I, ctypes.c_float, ctypes.c_ulonglong, _I] + [_VP] * 20)
+            [_I] * 13 + [_VP, _I, ctypes.c_float, ctypes.c_ulonglong, _I] + [_I] * 6
+            + [ctypes.c_longlong] + [_VP] * 21 + [_I, _VP])
         lib.dvc_wavenet_generate.restype = _I
         lib.dvc_mol_sample.argtypes = [_VP, ctypes.c_longlong, _I, _I,
                                        ctypes.c_ulonglong, _I, ctypes.c_float,
@@ -332,12 +468,29 @@ def wavenet_generate(packed: dict, cond: torch.Tensor, seed: int = 0,
     """Autoregressive MoL generation: cond (B, T, C) float32 upsampled
     conditioning -> (B, T) waveform in [-1, 1].
 
-    On a CUDA tensor this launches the hand-written kernel (the whole batch
-    in one call; the pack's dtypes pick its instantiation) or raises; on a
-    CPU tensor it runs wavenet_generate_plain.  deterministic=True takes the
-    argmax mixture's mean instead of sampling."""
+    On a CUDA tensor this makes one cooperative launch of the hand-written
+    kernel (the whole batch in one call; the pack's dtypes pick its
+    instantiation, ``block_plan`` its split over the card's SMs) or raises;
+    on a CPU tensor it runs wavenet_generate_plain.  deterministic=True takes
+    the argmax mixture's mean instead of sampling."""
     if cond.device.type == "cpu":
         return wavenet_generate_plain(packed, cond, seed, deterministic)
+    return _launch(packed, cond, seed, deterministic, False, 0)[0]
+
+
+def wavenet_generate_checked(packed: dict, cond: torch.Tensor, seed: int = 0,
+                             deterministic: bool = False, stamp_steps: int = 0):
+    """wavenet_generate's launch on a CUDA tensor with its checks on:
+    (out, draws, stamps).  draws (blocks, B, T) holds every block's own
+    draws, which must all equal out; stamps (stamp_steps, 4 L + 4) int64 the
+    SM clock of block 0 at the start of each of the first stamp_steps steps
+    and at the end of each phase and barrier: [start, then per layer in,
+    barrier (a), out, barrier (b), then final1, barrier, head]."""
+    return _launch(packed, cond, seed, deterministic, True, stamp_steps)
+
+
+def _launch(packed: dict, cond: torch.Tensor, seed: int, deterministic: bool,
+            checked: bool, stamp_steps: int):
     if cond.device.type != "cuda":
         raise ValueError(f"unsupported device {cond.device}")
     L, R, G, S, C, K = _dims(packed)
@@ -355,18 +508,22 @@ def wavenet_generate(packed: dict, cond: torch.Tensor, seed: int = 0,
         raise ValueError("packed weights must be contiguous, 16-byte aligned and "
                          f"on {cond.device}; pack them for that device")
     vec = 16 // w_in.element_size()
-    if w_in.shape[2] % vec or w_so.shape[2] % vec or S % 8:
-        raise ValueError(f"the kernel needs whole 16-byte weight rows and skip "
-                         f"channels % 8 == 0, got {wdt} rows of {w_in.shape[2]} and "
-                         f"{w_so.shape[2]}, and {S} skip channels")
+    if w_in.shape[2] % vec or w_so.shape[2] % vec or S % 8 or R % 8 or C % 4 or G % 16:
+        raise ValueError(f"the kernel needs whole 16-byte weight rows, skip channels and "
+                         f"R % 8 == 0, C % 4 == 0 and G % 16 == 0; got {wdt} rows of "
+                         f"{w_in.shape[2]} and {w_so.shape[2]}, S={S}, R={R}, C={C}, G={G}")
     b, t_total, _ = cond.shape
     dev = cond.device
+    plan = block_plan(packed, b, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty(b, t_total, device=dev)
     ring = torch.empty(packed["slots"], b, R, dtype=adt, device=dev)
-    h = torch.empty(2, b, R, device=dev)
-    skip = torch.empty(b, S, device=dev)
-    gated = torch.empty(b, G // 2, device=dev)
+    h = torch.empty(b, R, dtype=adt, device=dev)
+    skip = torch.empty(b, S, dtype=packed["w_f1"].dtype, device=dev)
+    gated = torch.empty(b, G // 2, dtype=adt, device=dev)
     fin = torch.empty(b, S, device=dev)
+    draws = torch.empty(plan["blocks"], b, t_total, device=dev) if checked else None
+    steps = min(stamp_steps, t_total)
+    stamps = torch.zeros(steps, 4 * L + 4, dtype=torch.int64, device=dev) if checked else None
     dil = np.ascontiguousarray(packed["dil"], np.int32)
     cfg: VocoderConfig = packed["cfg"]
     lib = _lib()
@@ -376,12 +533,16 @@ def wavenet_generate(packed: dict, cond: torch.Tensor, seed: int = 0,
             _DTYPE_CODE[wdt], _DTYPE_CODE[packed["w_f1"].dtype], b, t_total, L, R,
             _tap_stride(cfg, wdt == torch.int8), G, w_so.shape[2], S, C, w_in.shape[2], K,
             dil.ctypes.data, int(cfg.legacy), cfg.log_scale_min, _seed64(seed),
-            int(deterministic), *(None if p is None else p.data_ptr() for p in tensors),
+            int(deterministic), plan["blocks"], plan["pairs"], plan["rows"], plan["cols"],
+            plan["tile"], plan["resident_layers"], plan["smem_bytes"],
+            *(None if p is None else p.data_ptr() for p in tensors),
             cond.data_ptr(), ring.data_ptr(), h.data_ptr(), skip.data_ptr(),
-            gated.data_ptr(), fin.data_ptr(), out.data_ptr(), stream)
+            gated.data_ptr(), fin.data_ptr(), out.data_ptr(),
+            None if draws is None else draws.data_ptr(),
+            None if stamps is None or not steps else stamps.data_ptr(), steps, stream)
     _check(lib, err, "wavenet_generate")
     wavenet_generate.launches[str(wdt).removeprefix("torch.")] += 1
-    return out
+    return out, draws, stamps
 
 
 wavenet_generate.launches = collections.Counter()

@@ -14,27 +14,10 @@ import torch
 from dvc_tpu.kernels import wavenet_step as jstep
 from dvc_tpu_torch.kernels import generate, pack_wavenet_params
 from dvc_tpu_torch.kernels import wavenet_step as step
-from test_torch_port_wavenet import JTINY, TINY, TOL, _jax_params, _port
+from test_torch_port_wavenet import JTINY, TINY, TOL, _jax_params, _moving, _port
 
 R, C, S = TINY.residual_channels, TINY.cin_channels, TINY.skip_out_channels
 G2 = TINY.gate_channels // 2
-
-
-def _moving(params):
-    """The doctored head with mixture 0's mean row centred and scaled, as
-    chip_smoke.doctor_head does: over a teacher-forced pass of random frames
-    it has mean 0 and std 0.05, so the trajectory moves inside (-1, 1)
-    instead of resting on the clip, where a wrong weight can hide."""
-    nr = TINY.out_channels // 3
-    frames = torch.from_numpy(np.random.RandomState(99).rand(2, 16, C).astype(np.float32))
-    m = _port(params)
-    with torch.no_grad():
-        mean0 = m(torch.zeros(2, 16 * m.hop, 1), frames)[..., nr].numpy()
-    mean0 = mean0 - params["final2"]["bias"][nr]
-    k = np.float32(0.05 / mean0.std())
-    params["final2"]["kernel"][..., nr] *= k
-    params["final2"]["bias"][nr] = -k * mean0.mean()
-    return params
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,10 @@ kernel and lax.scan sampler, and the MoL sampler's distribution.
 
 Sampling is made deterministic by the doctored head of
 tests/test_pallas_wavenet.py:26-44 (mixture 0 dominates, log scales pinned
-at -40), so trajectories compare value for value whatever the RNG."""
+at -40), so trajectories compare value for value whatever the RNG.  Mixture
+0's mean row is centred and scaled (``_moving``, as chip_smoke.doctor_head
+does) so that the trajectory moves inside (-1, 1): the raw doctored head
+pins it near the -1 clip, where a wrong weight changes no sample."""
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,8 @@ TINY_KW = dict(layers=4, stacks=2, residual_channels=16, gate_channels=16,
 JTINY = JaxVocoderConfig(**TINY_KW)
 TINY = VocoderConfig(**TINY_KW)
 TOL = 2e-4  # the AR sampler gate of tests/test_pallas_wavenet.py:58
+TRAJ_STD = 0.05  # trajectory spread required: the raw doctored head gives 0.008-0.016
+                 # at these shapes (pinned at the clip), the centred one 0.20-0.32
 
 
 def _doctored(params, cfg):
@@ -61,9 +66,32 @@ def _port(params):
     return m
 
 
+def _moving(params):
+    """The doctored head with mixture 0's mean row centred and scaled, as
+    chip_smoke.doctor_head does: over a teacher-forced pass of random frames
+    it has mean 0 and std 0.05, so the trajectory moves inside (-1, 1)
+    instead of resting on the clip, where a wrong weight can hide."""
+    nr = TINY.out_channels // 3
+    frames = torch.from_numpy(np.random.RandomState(99).rand(2, 16, TINY.cin_channels)
+                              .astype(np.float32))
+    m = _port(params)
+    with torch.no_grad():
+        mean0 = m(torch.zeros(2, 16 * m.hop, 1), frames)[..., nr].numpy()
+    mean0 = mean0 - params["final2"]["bias"][nr]
+    k = np.float32(0.05 / mean0.std())
+    params["final2"]["kernel"][..., nr] *= k
+    params["final2"]["bias"][nr] = -k * mean0.mean()
+    return params
+
+
+def _moves(traj):
+    """The trajectory is off the clip and spread: a saturated head fails."""
+    return traj.std() > TRAJ_STD and np.abs(traj).max() < 1.0
+
+
 @pytest.fixture(scope="module")
 def det():
-    params = _jax_params(0)
+    params = _moving(_jax_params(0))
     return params, _port(params)
 
 
@@ -132,7 +160,7 @@ def test_plain_sampler_matches_pallas_interpret(det, dtype, atol):
     packed = step.pack_wavenet_params(m, getattr(torch, dtype), "cpu")
     got = step.wavenet_generate(packed, _cond(m, c), seed=123, deterministic=True).numpy()
     assert got.shape == want.shape == (2, 12)
-    assert want.std() > 1e-3  # the trajectory moves
+    assert _moves(want)
     np.testing.assert_allclose(got, want, rtol=0 if atol > TOL else TOL, atol=atol)
 
 
@@ -144,7 +172,7 @@ def test_plain_samplers_match_scan(det):
     c = np.random.RandomState(1).rand(2, 5, 4).astype(np.float32)
     want = np.asarray(jwn.fast_generate({"params": params}, jnp.asarray(c),
                                         jax.random.PRNGKey(7), JTINY))
-    assert want.std() > 1e-3  # the trajectory moves
+    assert _moves(want)
     packed = step.pack_wavenet_params(m, torch.float32, "cpu")
     for det_mode in (True, False):
         got = step.wavenet_generate(packed, _cond(m, c), seed=4, deterministic=det_mode)
@@ -194,7 +222,7 @@ def test_cuda_without_card_raises(det, monkeypatch):
 def test_vocoder_on_cpu(det):
     """make_vocoder on the CPU (the kernel's plain version, float32
     weights): bucketed batch and single-utterance calls, cropped to
-    T * hop."""
+    T * hop, against dvc_tpu's scan sampler on the bucket-padded frames."""
     params, m = det
     voc = make_vocoder(None, TINY, seed=0, pad_frames_to=4,
                        variables=m.state_dict(), device="cpu")
@@ -202,8 +230,14 @@ def test_vocoder_on_cpu(det):
     mels = [rng.rand(4, 3).astype(np.float32), rng.rand(4, 6).astype(np.float32)]
     wavs = voc.batch(mels)
     assert [w.shape for w in wavs] == [(12,), (24,)]
-    want = np.asarray(jwn.fast_generate({"params": params}, jnp.asarray(mels[1].T[None]),
-                                        jax.random.PRNGKey(0), JTINY))[0]
+    # both vocoders zero-pad the frames to the bucket (here 8), which the
+    # upsampler's kernel carries into the last samples: the reference is the
+    # padded utterance, cropped
+    padded = np.zeros((1, 8, 4), np.float32)
+    padded[0, :6] = mels[1].T
+    want = np.asarray(jwn.fast_generate({"params": params}, jnp.asarray(padded),
+                                        jax.random.PRNGKey(0), JTINY))[0, :24]
+    assert _moves(want)
     np.testing.assert_allclose(voc(mels[1]), want, rtol=TOL, atol=TOL)
 
 
