@@ -65,9 +65,27 @@ Phases; any failure exits non-zero before a result line is printed:
             reads every tap (P1 with a weight of larger gain), where a kernel
             with layer 23 at half its dilation (P1 static and compute: a
             zeroed w column), and P2 and P3 with each other's cond rule (also
-            at T = 1000), must be rejected.
-The lines before the last report the card (nvidia-smi name and power limit),
-timings and one JSON line of kernels; the last line is
+            at T = 1000), must be rejected;
+  8. train  the VAE training path at the full VAEConfig (no hand kernel:
+            cuDNN/cuBLAS, float32, TF32 off): Trainer.run_training at
+            training.sh's batch 8 on a synthetic corpus made as in phase 3
+            (16 utterances a speaker), finite losses and a checkpoint, then
+            the loss falling over 10 steps on one batch; one float32 step on
+            the card against the same step on the CPU (same weights, batch
+            and injected noise: loss terms, gradients, BN running stats at
+            the limits of tests/test_torch_port_train.py); ms a step, mel
+            frames/s and peak memory at bench.py's batch 256, and the
+            profiler's busy share and kernels over 3 steps;
+  9. serve  the serving defaults: `python -m dvc_tpu_torch.cli.run serve`
+            as a child process with the Griffin-Lim default on phase 8's
+            checkpoint answers 3 concurrent POST /convert (one at 22.05 kHz,
+            resampled), and `serve --profile_transfer` answers 2 (one at
+            44.1 kHz); Griffin-Lim (after one iteration, and by spectral
+            convergence after 32) and resample_poly on the card against the
+            CPU.
+Each phase prints its seconds.  The lines before the last report the card
+(nvidia-smi name and power limit), timings and one JSON line of kernels
+(phases 8-9 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -510,6 +528,330 @@ def probes(card, dev):
         check(v > tol, f"the {kind} check passes the other probe's cond rule at T={pb.T}")
     return report
 
+TERM_RTOL = 1e-5        # phase 8, card step against CPU step: the limits of
+GRAD_RTOL = 1e-3        # tests/test_torch_port_train.py (loss terms; each gradient
+PRE_BN_BIAS_SHARE = 1e-4  # over its max |g|; conv biases ahead of a train-mode BN,
+STATS_ATOL = 1e-5       # whose exact gradient is 0, over their weight's; BN stats)
+GL_ONE_RTOL = 1e-4      # phase 9, card against CPU: Griffin-Lim after one iteration,
+                        # max |diff| over max |ref|: 5.4e-7 read on the card, 4.5e-7
+                        # between float32 and float64 on the CPU (PERF.md section 6)
+RESAMPLE_ATOL = 2e-6    # resample_poly: the limit of tests/test_torch_port_griffinlim.py
+GL_SC_RTOL = 0.1        # after 32 iterations the phase is chaotic at float32 resolution:
+                        # a 1e-7 relative change of the magnitude moves the waveform by up
+                        # to 0.97 of its peak and its spectral convergence by 4% (CPU, PERF.md
+                        # section 6); the card's and the CPU's spectral convergence are held
+                        # within 10% of each other, and under half of the zero-phase start's
+BENCH_BATCH, BENCH_FRAMES = 256, 64  # bench.py:40-41, the repo's train workload
+TRAIN_BATCH = 8         # training.sh
+
+
+def make_corpus(mel_dir, dev, acfg, n_utts, seconds):
+    """A synthetic 2-speaker mel corpus made with the port's melspectrogram:
+    sines at 140 + 90 (speaker) + 25 (utterance) Hz, seconds(utterance) long."""
+    from dvc_tpu_torch.ops.mel import melspectrogram
+    for si, spk in enumerate(("spkA", "spkB")):
+        os.makedirs(os.path.join(mel_dir, spk))
+        for ui in range(n_utts):
+            tt = np.arange(int(acfg.sample_rate * seconds(ui))) / acfg.sample_rate
+            wav = 0.4 * np.sin(2 * np.pi * (140 + 90 * si + 25 * ui) * tt)
+            with torch.inference_mode():
+                mel = melspectrogram(torch.tensor(wav, dtype=torch.float32, device=dev), acfg)
+            np.save(os.path.join(mel_dir, spk, f"{spk}_{ui:03d}_mel.npy"), mel.cpu().numpy())
+
+
+def device_busy_us(prof) -> float:
+    """Microseconds in which at least one kernel ran: the union of the
+    device events' intervals (kernels on several streams overlap, so their
+    summed times can exceed the wall time)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def step_against_cpu(cfg, dev):
+    """One float32 train step at full width on the card and on the CPU from
+    the same weights, batch and injected noise, TF32 off: (loss terms err,
+    worst gradient err, worst pre-BN bias share, worst BN stat err)."""
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.train.trainer import make_optimizer, make_train_step
+    rng = np.random.RandomState(11)
+    v = cfg.vae
+    x1, x2 = (torch.from_numpy(rng.rand(TRAIN_BATCH, v.num_mels, v.frames).astype(np.float32))
+              for _ in range(2))
+    eps = [torch.from_numpy(rng.randn(TRAIN_BATCH, n).astype(np.float32))
+           for n in (v.content_size, v.content_size, v.speaker_size)]
+    cpu = seeded(lambda: DisentangledVAE(v, pair_fused=True), SEED + 6).train()
+    card = copy.deepcopy(cpu).to(dev)
+    out = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        step = make_train_step(model, make_optimizer(model, 1e-4), compute_dtype="float32")
+        terms = step(x1.to(d), x2.to(d), eps=tuple(e.to(d) for e in eps))
+        out[name] = (terms, {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
+    (t_c, g_c, s_c), (t_g, g_g, s_g) = out["cpu"], out["card"]
+    term_err = max(abs(a.item() - b.item()) / max(abs(a.item()), 1e-12)
+                   for a, b in zip(t_c, t_g))
+    grad_err, bias_share = 0.0, 0.0
+    for n, a in g_c.items():
+        b = g_g[n]
+        if n.endswith("conv.bias") or (n.startswith("dec_modules") and n.endswith(".0.bias")):
+            w = g_c[n[:-len("bias")] + "weight"].abs().max().item()
+            bias_share = max(bias_share, max(a.abs().max().item(), b.abs().max().item()) / w)
+            continue
+        grad_err = max(grad_err, (a - b).abs().max().item() / a.abs().max().item())
+    stat_err = max((s_c[n] - s_g[n]).abs().max().item() for n in s_c)
+    return term_err, grad_err, bias_share, stat_err, t_c.total.item()
+
+
+def train_phase(card, dev, work):
+    """Phase 8: the VAE training path at full width.  Returns (mel_dir,
+    log_dir) for phase 9."""
+    from dvc_tpu_torch.config import AudioConfig, Config, TrainConfig
+    from dvc_tpu_torch.data.dataset import PairedMelDataset
+    from dvc_tpu_torch.train.checkpoint import latest_checkpoint_step
+    from dvc_tpu_torch.train.trainer import Trainer
+    acfg = AudioConfig()
+    mel_dir, log_dir = os.path.join(work, "mels8"), os.path.join(work, "run8")
+    # phase 3's recipe, 16 utterances a speaker of 1.2-1.95 s (70-125 frames,
+    # so the 64-frame crops move): 16 same-speaker pairs, batch 8 is real
+    make_corpus(mel_dir, dev, acfg, 16, lambda ui: 1.2 + 0.05 * ui)
+    cfg = Config(train=TrainConfig(batch_size=TRAIN_BATCH, seed=SEED))
+    # (i) the main path: Trainer.run_training, the defaults (compute_dtype
+    # bfloat16, pair_fused), a checkpoint at the last epoch
+    epochs = 4
+    trainer = Trainer(cfg, checkpoints_path=os.path.join(log_dir, "checkpoints"), device=dev)
+    ds = PairedMelDataset(mel_dir, samples_length=cfg.vae.frames, seed=SEED)
+    t0 = time.perf_counter()
+    hist = trainer.run_training(ds, epochs, report_interval=epochs,
+                                logging_func=lambda m: print(f"train [{card}] {m}", flush=True))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    found = latest_checkpoint_step(os.path.join(log_dir, "checkpoints"))
+    check(all(math.isfinite(h["total"]) for h in hist), f"train loss not finite: {hist}")
+    check(found is not None and found[0] == epochs, f"no checkpoint of epoch {epochs}: {found}")
+    check(os.path.exists(found[1][: -len(".pth")] + ".opt.pth"), "no optimizer checkpoint")
+    # the loss on one fixed batch falls over 10 more steps
+    x1, x2, _ = next(iter(ds.batches(TRAIN_BATCH)))
+    x1, x2 = (torch.from_numpy(a).to(dev) for a in (x1, x2))
+    fixed = [trainer.step_on(x1, x2).total.item() for _ in range(10)]
+    check(all(math.isfinite(f) for f in fixed) and fixed[-1] < fixed[0],
+          f"loss does not fall on a fixed batch: {fixed}")
+    print(f"train main path [{card}]: run_training {epochs} epochs x {len(ds) // TRAIN_BATCH} "
+          f"steps at batch {TRAIN_BATCH} in {run_s:.1f} s, epoch losses "
+          f"{[round(h['total'], 2) for h in hist]}; checkpoint {os.path.basename(found[1])}; "
+          f"fixed batch over 10 steps {fixed[0]:.2f} -> {fixed[-1]:.2f}", flush=True)
+
+    # (ii) one float32 step on the card against the same step on the CPU
+    t0 = time.perf_counter()
+    term_err, grad_err, bias_share, stat_err, total = step_against_cpu(cfg, dev)
+    print(f"train step card vs CPU [{card}] full width, float32, batch {TRAIN_BATCH}, TF32 off "
+          f"({time.perf_counter() - t0:.1f} s): loss {total:.3f}; loss terms rel err "
+          f"{term_err:.3e} (limit {TERM_RTOL}), gradients rel err {grad_err:.3e} (limit "
+          f"{GRAD_RTOL}), pre-BN conv biases' gradient share {bias_share:.3e} (limit "
+          f"{PRE_BN_BIAS_SHARE}), BN running stats max err {stat_err:.3e} (limit {STATS_ATOL})",
+          flush=True)
+    check(term_err <= TERM_RTOL, f"card step loss terms differ from the CPU's: {term_err}")
+    check(grad_err <= GRAD_RTOL, f"card step gradients differ from the CPU's: {grad_err}")
+    check(bias_share <= PRE_BN_BIAS_SHARE, f"pre-BN bias gradients not ~0: {bias_share}")
+    check(stat_err <= STATS_ATOL, f"card step BN statistics differ from the CPU's: {stat_err}")
+
+    # (iii) steady-state steps at bench.py's batch, the default config
+    del trainer
+    torch.cuda.empty_cache()
+    bench = Trainer(Config(train=TrainConfig(batch_size=BENCH_BATCH, seed=SEED)), device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    xb1, xb2 = (torch.rand(BENCH_BATCH, 80, BENCH_FRAMES, device=dev, generator=g)
+                for _ in range(2))
+    for _ in range(3):
+        bench.step_on(xb1, xb2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # weights, Adam, batch, earlier phases
+    iters = 20
+    _, ms = events_ms(lambda: [bench.step_on(xb1, xb2) for _ in range(iters)])
+    loss = bench.step_on(xb1, xb2).total.item()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_ms = ms / iters
+    fps = 2 * BENCH_BATCH * BENCH_FRAMES / (step_ms / 1e3)
+    check(math.isfinite(loss), "bench step loss not finite")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, p_ms = events_ms(lambda: [bench.step_on(xb1, xb2) for _ in range(3)])
+    kern = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(k[1] for k in kern)
+    busy_us = device_busy_us(prof)
+    top = sorted(kern, key=lambda k: -k[1])[:8]
+    print(f"train step [{card}] batch {BENCH_BATCH} x {BENCH_FRAMES} frames, bfloat16 inputs, "
+          f"float32 compute (TF32 off), pair_fused: {step_ms:.2f} ms a step (mean of {iters}), "
+          f"{fps:.1f} mel frames/s, peak memory {peak_gb:.2f} GB ({peak_gb - held_gb:.2f} GB "
+          f"above the {held_gb:.2f} GB allocated before the steps)", flush=True)
+    if busy_us > 0:
+        print(f"train step profile [{card}] 3 steps, {p_ms:.1f} ms: kernel time "
+              f"{kernel_us / 1e3:.1f} ms summed over streams, device busy (union of kernel "
+              f"intervals) {busy_us / 1e3:.1f} ms (idle share {1 - busy_us / (p_ms * 1e3):.3f}); "
+              "top kernels by device time: " + "; ".join(
+                  f"{k[:60]} {us / 1e3:.1f} ms x {n}" for k, us, n in top), flush=True)
+    else:
+        print(f"train step profile [{card}]: no device time recorded (not measured)",
+              flush=True)
+    del bench
+    torch.cuda.empty_cache()
+    return mel_dir, log_dir
+
+
+def start_serve(args, port, device, log_path):
+    """``python -m dvc_tpu_torch.cli.run serve`` in a child process on
+    ``device``, its output in log_path; returns it once /health answers."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "dvc_tpu_torch.cli.run", "serve", *args,
+                                 "--port", str(port), "--device", str(device)], cwd=root,
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            with open(log_path) as log:
+                raise SystemExit(f"chip_smoke: FAILED: serve exited {proc.returncode}: "
+                                 f"{log.read()[-2000:]}")
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5) as r:
+                if r.status == 200:
+                    return proc
+        except OSError:
+            time.sleep(0.5)
+    stop(proc)
+    raise SystemExit("chip_smoke: FAILED: serve did not answer /health in 300 s")
+
+
+def stop(proc):
+    proc.terminate()
+    try:
+        proc.wait(30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_phase(card, dev, mel_dir, log_dir):
+    """Phase 9: the serving defaults.  `serve` with the default Griffin-Lim
+    vocoder on phase 8's checkpoint answers concurrent POST /convert, one
+    at 22.05 kHz; `serve --profile_transfer` answers too; Griffin-Lim and
+    resample_poly on the card against the CPU."""
+    from dvc_tpu_torch.config import AudioConfig
+    from dvc_tpu_torch.convert import griffinlim as gl
+    from dvc_tpu_torch.ops.audio import resample_poly
+    from dvc_tpu_torch.utils.wavio import parse_wav, wav_bytes
+    acfg = AudioConfig()
+
+    def body(sr, seed):
+        tt = np.arange(sr // 2) / sr
+        rng = np.random.RandomState(seed)
+        return wav_bytes((0.3 * np.sin(2 * np.pi * (170 + 20 * seed) * tt)
+                          + 0.01 * rng.randn(len(tt))).astype(np.float32), sr)
+
+    def post(url, data):
+        req = urllib.request.Request(f"{url}/convert?trg_spk=spkB", data=data, method="POST")
+        t_req = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), time.perf_counter() - t_req
+
+    # 0.5 s at 16 kHz -> 33 mel frames -> one 64-frame chunk -> Griffin-Lim
+    want_len = gl.default_inversion_length(BENCH_FRAMES, acfg)
+    routes = (("default (Griffin-Lim, phase 8's checkpoint)",
+               ["--dataset_fp", mel_dir, "--log_dir", log_dir, "--max_wait_ms", "500"],
+               (16000, 22050, 16000)),
+              ("--profile_transfer", ["--dataset_fp", mel_dir, "--profile_transfer",
+                                      "--max_wait_ms", "500"], (44100, 16000)))
+    for name, args, rates in routes:
+        port = free_port()
+        t0 = time.perf_counter()
+        proc = start_serve(args, port, dev.type, os.path.join(log_dir, f"serve_{port}.log"))
+        up_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        try:
+            post(url, body(16000, 99))  # warm-up: cuDNN plans, cuFFT plans
+            with ThreadPoolExecutor(len(rates)) as pool:
+                replies = list(pool.map(lambda a: post(url, body(*a)),
+                                        [(sr, i) for i, sr in enumerate(rates)]))
+            with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+                stats = json.loads(r.read())
+        finally:
+            stop(proc)
+        for (status, data, _), sr in zip(replies, rates):
+            wav, out_sr = parse_wav(data)
+            check(status == 200 and out_sr == acfg.sample_rate,
+                  f"serve {name}: reply {status} at {out_sr} Hz for a {sr} Hz body")
+            check(np.isfinite(wav).all() and wav.std() > 1e-3,
+                  f"serve {name}: reply for a {sr} Hz body not a finite moving wav")
+            if "profile" not in name:
+                check(wav.shape == (want_len,), f"serve {name}: reply {wav.shape} for {sr} Hz")
+        lat = sorted(r[2] for r in replies)
+        print(f"serve {name} [{card}]: up in {up_s:.1f} s; {len(rates)} concurrent POST "
+              f"/convert of 0.5 s at {list(rates)} Hz answered 200 with 16 kHz wavs of "
+              f"{[len(parse_wav(r[1])[0]) for r in replies]} samples; latency min "
+              f"{lat[0]:.3f} s, max {lat[-1]:.3f} s; {stats['requests']} requests in "
+              f"{stats['batches']} batches", flush=True)
+
+    # Griffin-Lim and resampling, card against CPU
+    mel = np.load(os.path.join(mel_dir, "spkA", "spkA_000_mel.npy"))
+    mags = {d: gl.mel_to_stft_magnitude(torch.from_numpy(mel).to(d), acfg)
+            for d in ("cpu", dev)}
+    length = gl.default_inversion_length(mel.shape[1], acfg)
+
+    def spectral_convergence(wav):
+        """|| |STFT(wav)| - mag || / || mag ||, Griffin-Lim's objective."""
+        m = mags["cpu"].double()
+        return ((gl._stft_complex(torch.from_numpy(wav).double(), acfg).abs() - m).norm()
+                / m.norm()).item()
+
+    one = {d: gl.griffin_lim(mags[d], acfg, 1) for d in mags}
+    gl_err = rel_err(torch.from_numpy(one[dev]), torch.from_numpy(one["cpu"]))
+    t0 = time.perf_counter()
+    want = gl.griffin_lim(mags["cpu"], acfg, 32)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    gl.griffin_lim(mags[dev], acfg, 32)
+    got, g_ms = events_ms(lambda: gl.griffin_lim(mags[dev], acfg, 32))
+    sc0 = spectral_convergence(gl.griffin_lim(mags["cpu"], acfg, 0))
+    sc_c, sc_g = spectral_convergence(want), spectral_convergence(got)
+    rng = np.random.RandomState(12)
+    w22 = torch.from_numpy((rng.randn(22050) * 0.3).astype(np.float32))
+    r_want = resample_poly(w22, 22050, 16000)
+    w22d = w22.to(dev)
+    resample_poly(w22d, 22050, 16000)
+    r_got, r_ms = events_ms(lambda: resample_poly(w22d, 22050, 16000))
+    r_err = (r_got.cpu() - r_want).abs().max().item()
+    print(f"griffin_lim card vs CPU [{card}] {mel.shape[1]} frames -> {length} samples: one "
+          f"iteration rel err {gl_err:.3e} (limit {GL_ONE_RTOL}); 32 iterations: card {g_ms:.1f} "
+          f"ms, CPU {c_ms:.1f} ms, spectral convergence card {sc_g:.4f}, CPU {sc_c:.4f} "
+          f"(limit {GL_SC_RTOL} apart), zero-phase start {sc0:.4f}, waveform rel diff "
+          f"{rel_err(torch.from_numpy(got), torch.from_numpy(want)):.3e} (reported). "
+          f"resample_poly 22050 -> 16000 Hz, 1 s: max abs err {r_err:.3e} (limit "
+          f"{RESAMPLE_ATOL}); card {r_ms:.2f} ms", flush=True)
+    check(one[dev].shape == one["cpu"].shape == (length,) and gl_err <= GL_ONE_RTOL,
+          f"Griffin-Lim card vs CPU after one iteration {gl_err}")
+    check(got.shape == want.shape and abs(sc_g - sc_c) <= GL_SC_RTOL * sc_c
+          and max(sc_g, sc_c) < 0.5 * sc0,
+          f"Griffin-Lim spectral convergence card {sc_g}, CPU {sc_c}, start {sc0}")
+    check(r_got.shape == r_want.shape and r_err <= RESAMPLE_ATOL,
+          f"resample_poly card vs CPU {r_err}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -522,7 +864,6 @@ def main() -> int:
     from dvc_tpu_torch.kernels import wavenet_step as ws
     from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
     from dvc_tpu_torch.models.wavenet import WaveNet, sample_from_mol
-    from dvc_tpu_torch.ops.mel import melspectrogram
     from dvc_tpu_torch.serve import ConversionService, make_http_server
     from dvc_tpu_torch.utils.device import use_exact_float32
     from dvc_tpu_torch.utils.wavio import parse_wav, wav_bytes
@@ -533,10 +874,18 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
 
+    phase_t = [time.perf_counter()]
+
+    def phase_done(n):
+        phase_t.append(time.perf_counter())
+        print(f"phase {n} seconds: {phase_t[-1] - phase_t[-2]:.1f}", flush=True)
+
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s wall)", flush=True)
+
+    phase_done(1)
 
     # 2. kernel vs plain at full width ------------------------------------------
     vcfg = VocoderConfig()
@@ -619,19 +968,14 @@ def main() -> int:
           flush=True)
     check(d_mean < 0.01 and d_std < 0.01, "MoL sampler moments")
 
+    phase_done(2)
+
     # 3. the main path ------------------------------------------------------------
     acfg = AudioConfig()
     cfg = Config(vae=VAEConfig())
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     mel_dir = os.path.join(tmp.name, "mels")
-    for si, spk in enumerate(("spkA", "spkB")):
-        os.makedirs(os.path.join(mel_dir, spk))
-        for ui in range(2):
-            tt = np.arange(acfg.sample_rate) / acfg.sample_rate
-            wav = 0.4 * np.sin(2 * np.pi * (140 + 90 * si + 25 * ui) * tt)
-            with torch.inference_mode():
-                mel = melspectrogram(torch.tensor(wav, dtype=torch.float32, device=dev), acfg)
-            np.save(os.path.join(mel_dir, spk, f"{spk}_{ui:03d}_mel.npy"), mel.cpu().numpy())
+    make_corpus(mel_dir, dev, acfg, 2, lambda ui: 1.0)
 
     vae = seeded(lambda: DisentangledVAE(cfg.vae), SEED + 3).eval()
     src = np.load(os.path.join(mel_dir, "spkA", "spkA_000_mel.npy"))
@@ -660,9 +1004,7 @@ def main() -> int:
     vocoder.batch = voc_batch
     service = ConversionService(cfg, vae, mel_dir, vocoder=vocoder,
                                 max_wait_ms=1000.0, device=dev)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     server = make_http_server(service, "127.0.0.1", port)
     srv_thread = threading.Thread(target=server.serve_forever, daemon=True)
     srv_thread.start()
@@ -716,6 +1058,8 @@ def main() -> int:
           f"{d_req} requests in {d_bat} batch(es); wavenet_generate launches {launches}",
           flush=True)
 
+    phase_done(3)
+
     # 4. the kernel at the main path's shapes -----------------------------------
     shapes = max((s for s, _ in seen), key=len)
     b_main = len(shapes)
@@ -745,6 +1089,8 @@ def main() -> int:
     tmp.cleanup()
     k1 = {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
           "bound_ms": b_ms, "bound_by": b_by}  # bf16: the main path's weights
+
+    phase_done(4)
 
     # 5. the block plans; us per step by batch; where a step's time goes -----
     q8 = ws.pack_wavenet_params(det, torch.bfloat16, dev, quantize=True)
@@ -779,6 +1125,8 @@ def main() -> int:
         split = phase_split(stamps, vcfg.layers)
         print(f"phase split [{card}] {name} B={b_main}: share of block 0's cycles "
               + json.dumps({k: round(v, 4) for k, v in split.items()}), flush=True)
+
+    phase_done(5)
 
     # 6. int8 weight streaming -------------------------------------------------
     # (i) the fine check.  int8 activations are bf16 whatever the weights, so
@@ -951,8 +1299,19 @@ def main() -> int:
     k3 = {"launches": launches8, "max_abs_err": err8, "ms": k8_ms, "plain_ms": p8_ms,
           "bound_ms": b8_ms, "bound_by": b8_by}
 
+    phase_done(6)
+
     # 7. the tools/ probes ------------------------------------------------------
     pr = probes(card, dev)
+    phase_done(7)
+
+    # 8. the VAE training path; 9. the serving defaults ---------------------------
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    mel8, run8 = train_phase(card, dev, work.name)
+    phase_done(8)
+    serve_phase(card, dev, mel8, run8)
+    work.cleanup()
+    phase_done(9)
 
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's

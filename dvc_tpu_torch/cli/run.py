@@ -1,18 +1,21 @@
-"""CLI of the port: serve / convert / vocode.
+"""CLI of the port: train / serve / convert / vocode.
 
-Same flags as dvc_tpu's commands (dvc_tpu/cli/run.py), plus ``--device
-{cuda,cpu}`` (default cuda; cuda without a card is an error).  A bare
+Same flags and defaults as dvc_tpu's commands (dvc_tpu/cli/run.py), plus
+``--device {cuda,cpu}`` (default cuda; cuda without a card is an error).
+The vocoder is Griffin-Lim by default (``--gl_iters``, 32); a bare
 ``--vocoder_ckpt`` selects the WaveNet vocoder (its sampler is the CUDA
-kernel on cuda); ``--vocoder none`` returns mels.  Griffin-Lim (dvc_tpu's
-default), the iSTFT vocoder and the other routes are not ported yet and exit
-with a message.
+kernel on cuda); ``--vocoder none`` returns mels.  ``--profile_transfer``
+converts or serves with the model-free DSP route.  The iSTFT vocoder, the
+WORLD route and the other commands are not ported yet and exit with a
+message.
 
 Usage:
-  python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --log_dir <run> \\
-      --vocoder_ckpt <r9y9 .pth>
+  python -m dvc_tpu_torch.cli.run train --dataset_fp <mel_dir> --log_dir <run>
+  python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --log_dir <run>
+  python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --profile_transfer
   python -m dvc_tpu_torch.cli.run convert --dataset_fp <mel_dir> --log_dir <run> \\
-      --src_spk A --trg_spk B --vocoder_ckpt <r9y9 .pth>
-  python -m dvc_tpu_torch.cli.run vocode <mel.npy> --vocoder_ckpt <r9y9 .pth>
+      --src_spk A --trg_spk B [--vocoder_ckpt <r9y9 .pth>]
+  python -m dvc_tpu_torch.cli.run vocode <mel.npy> [--vocoder_ckpt <r9y9 .pth>]
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ NOT_PORTED = "not yet ported — see ROADMAP.md"
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
-    """dvc_tpu's _add_train_args: the serving commands read the model
-    geometry from them; the training-only flags are accepted and unused."""
+    """dvc_tpu's _add_train_args: ``train`` reads them all; the serving
+    commands read the model geometry and accept the rest unused."""
     p.add_argument("--dataset_fp", required=True)
     p.add_argument("--log_dir", default="./results")
     p.add_argument("--batch-size", type=int, default=8)
@@ -45,8 +48,11 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--adv_lr", type=float, default=1e-3)
     p.add_argument("--adv_mode", default="confusion", choices=["confusion", "grl"])
     p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"],
-                   help="training dtype; the port serves the VAE in float32")
-    p.add_argument("--checkpoint-format", default="msgpack", choices=["msgpack", "orbax"])
+                   help="bfloat16 rounds the training inputs to bf16 and computes "
+                        "in float32, as dvc_tpu does; serving is float32")
+    p.add_argument("--checkpoint-format", default="msgpack", choices=["msgpack", "orbax"],
+                   help="msgpack: the port writes .pth state dicts; orbax is not "
+                        "ported yet")
     p.add_argument("--features", default="mel", choices=["mel", "mcc"])
     p.add_argument("--num_mcep", type=int, default=36)
     p.add_argument("--do-not-resume", action="store_true")
@@ -71,14 +77,22 @@ def _add_vocoder_args(p: argparse.ArgumentParser) -> None:
 
 
 def _config_from_args(args):
-    from dvc_tpu_torch.config import Config, VAEConfig
+    from dvc_tpu_torch.config import Config, LossConfig, TrainConfig, VAEConfig
     if args.features == "mcc":
         raise SystemExit(f"--features mcc (the WORLD route) is {NOT_PORTED}")
     if args.samples_length is None:
         args.samples_length = 64  # the reference's mel crop (train.py:53)
-    return Config(vae=VAEConfig(latent_dim=args.latent_size,
-                                speaker_size=args.speaker_size,
-                                frames=args.samples_length))
+    vae = VAEConfig(latent_dim=args.latent_size, speaker_size=args.speaker_size,
+                    frames=args.samples_length)
+    loss = LossConfig(mse_cof=args.mse_cof, kl_cof=args.kl_cof, style_cof=args.style_cof,
+                      beta_cof=args.beta_cof, adv_cof=args.adv_cof, adv_lr=args.adv_lr,
+                      adv_mode=args.adv_mode)
+    train = TrainConfig(batch_size=args.batch_size, learning_rate=args.lr,
+                        epochs=args.epochs, report_interval=args.report_interval,
+                        seed=args.seed, samples_length=args.samples_length,
+                        compute_dtype=args.compute_dtype,
+                        checkpoint_format=args.checkpoint_format)
+    return Config(vae=vae, loss=loss, train=train)
 
 
 def _load_model(args, cfg):
@@ -90,17 +104,18 @@ def _load_model(args, cfg):
     return model
 
 
-def _make_cli_vocoder(args):
-    """A bare --vocoder_ckpt is the WaveNet; none disables waveform output;
-    griffinlim and istft are not ported yet."""
+def _make_cli_vocoder(args, cfg):
+    """A bare --vocoder_ckpt is the WaveNet; griffinlim is the
+    checkpoint-free default; none disables waveform output; istft is not
+    ported yet."""
     if args.vocoder == "istft":
         raise SystemExit(f"--vocoder istft is {NOT_PORTED}")
     if args.vocoder_ckpt:
         from dvc_tpu_torch.convert.vocode import make_vocoder
         return make_vocoder(args.vocoder_ckpt, seed=0, device=args.device)
     if args.vocoder == "griffinlim":
-        raise SystemExit(f"--vocoder griffinlim is {NOT_PORTED}; pass "
-                         "--vocoder_ckpt for the WaveNet or --vocoder none")
+        from dvc_tpu_torch.convert.griffinlim import make_griffinlim_vocoder
+        return make_griffinlim_vocoder(cfg.audio, n_iter=args.gl_iters, device=args.device)
     return None
 
 
@@ -123,42 +138,88 @@ def _load_fs_mask(args, cfg):
     return fs_mask
 
 
-def cmd_serve(args) -> int:
-    from dvc_tpu_torch.serve import ConversionService, make_http_server
-    if args.pipeline == "world":
-        raise SystemExit(f"--pipeline world is {NOT_PORTED}")
-    if args.profile_transfer:
-        raise SystemExit(f"--profile_transfer is {NOT_PORTED}")
+def cmd_train(args) -> int:
+    from dvc_tpu_torch.data.dataset import PairedMelDataset
+    from dvc_tpu_torch.train.trainer import Trainer, unported_settings
     cfg = _config_from_args(args)
-    vocoder = _make_cli_vocoder(args)  # unported vocoders exit before any load
-    fs_mask = _load_fs_mask(args, cfg)
-    service = ConversionService(cfg, _load_model(args, cfg), args.dataset_fp, vocoder,
-                                max_wait_ms=args.max_wait_ms, fs_mask=fs_mask,
-                                device=args.device)
-    server = make_http_server(service, args.host, args.port)
-    print(f"serving on http://{args.host}:{args.port} "
-          f"({len(service.speakers())} target speakers, device {args.device})")
+    bad = unported_settings(cfg)
+    if bad:
+        raise SystemExit(f"{', '.join(bad)}: {NOT_PORTED}")
+    dataset = PairedMelDataset(args.dataset_fp, samples_length=args.samples_length,
+                               seed=args.seed)
+    os.makedirs(args.log_dir, exist_ok=True)
+    with open(os.path.join(args.log_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    trainer = Trainer(cfg, checkpoints_path=os.path.join(args.log_dir, "checkpoints"),
+                      logs_path=os.path.join(args.log_dir, "logs"), device=args.device)
+    try:
+        trainer.run_training(dataset, args.epochs, report_interval=args.report_interval,
+                             reload_model=not args.do_not_resume)
+    finally:
+        trainer.close()
+    return 0
+
+
+def _serve_forever(server, what: str) -> None:
+    host, port = server.server_address[:2]
+    print(f"serving on http://{host}:{port} ({what})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+
+
+def cmd_serve(args) -> int:
+    from dvc_tpu_torch.serve import (ConversionService, ProfileTransferService,
+                                     make_http_server)
+    if args.pipeline == "world":
+        if args.profile_transfer:
+            raise SystemExit("--profile_transfer serves the mel pipeline only; "
+                             "drop --pipeline world")
+        raise SystemExit(f"--pipeline world is {NOT_PORTED}")
+    cfg = _config_from_args(args)
+    if args.profile_transfer:
+        # the model-free DSP route: no checkpoint; the vocoder is the only
+        # device work
+        if args.fs_mask:
+            raise SystemExit("--profile_transfer is model-free; --fs_mask does not apply")
+        service = ProfileTransferService(cfg, args.dataset_fp, _make_cli_vocoder(args, cfg),
+                                         max_wait_ms=args.max_wait_ms, device=args.device)
+        _serve_forever(make_http_server(service, args.host, args.port),
+                       f"{len(service.speakers())} target speakers, profile-transfer "
+                       f"DSP route, device {args.device}")
+        return 0
+    vocoder = _make_cli_vocoder(args, cfg)  # unported vocoders exit before any load
+    fs_mask = _load_fs_mask(args, cfg)
+    service = ConversionService(cfg, _load_model(args, cfg), args.dataset_fp, vocoder,
+                                max_wait_ms=args.max_wait_ms, fs_mask=fs_mask,
+                                device=args.device)
+    _serve_forever(make_http_server(service, args.host, args.port),
+                   f"{len(service.speakers())} target speakers, device {args.device}")
     return 0
 
 
 def cmd_convert(args) -> int:
     from dvc_tpu_torch.convert.conversion import VoiceConverter
     from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
-    for flag in ("long_context", "profile_transfer", "analyze"):
+    for flag in ("long_context", "analyze"):
         if getattr(args, flag):
             raise SystemExit(f"--{flag} is {NOT_PORTED}")
     cfg = _config_from_args(args)
     device = resolve_device(args.device)
-    use_exact_float32()  # the VAE is served in float32, never TF32
-    vocoder = _make_cli_vocoder(args)  # unported vocoders exit before any load
-    model = _load_model(args, cfg).to(device).eval()
-    converter = VoiceConverter(cfg, model, seed=args.seed, fs_mask=_load_fs_mask(args, cfg))
+    model = None
+    if args.profile_transfer:
+        if args.fs_mask:
+            raise SystemExit("--profile_transfer is model-free; --fs_mask does not apply")
+    else:
+        use_exact_float32()  # the VAE is served in float32, never TF32
+    vocoder = _make_cli_vocoder(args, cfg)  # unported vocoders exit before any load
+    if not args.profile_transfer:
+        model = _load_model(args, cfg).to(device).eval()
+    converter = VoiceConverter(cfg, model, seed=args.seed, fs_mask=_load_fs_mask(args, cfg),
+                               profile_transfer=args.profile_transfer)
     results = converter.convert_speaker_pair(
         args.dataset_fp, args.src_spk, args.trg_spk,
         os.path.join(args.log_dir, "generation"),
@@ -170,14 +231,19 @@ def cmd_convert(args) -> int:
 def cmd_vocode(args) -> int:
     import numpy as np
 
+    from dvc_tpu_torch.config import AudioConfig
     from dvc_tpu_torch.utils.wavio import write_wav
     mel = np.load(args.mel_npy)
     if mel.ndim != 2:
         raise SystemExit(f"expected an (n_mels, T) mel, got {mel.shape}")
-    if not args.vocoder_ckpt:
-        raise SystemExit(f"Griffin-Lim is {NOT_PORTED}; pass --vocoder_ckpt")
-    from dvc_tpu_torch.convert.vocode import make_vocoder
-    wav = make_vocoder(args.vocoder_ckpt, device=args.device)(mel)
+    if args.vocoder_ckpt:
+        from dvc_tpu_torch.convert.vocode import make_vocoder
+        voc = make_vocoder(args.vocoder_ckpt, device=args.device)
+    else:
+        from dvc_tpu_torch.convert.griffinlim import make_griffinlim_vocoder
+        voc = make_griffinlim_vocoder(AudioConfig(), n_iter=args.gl_iters,
+                                      device=args.device)
+    wav = voc(mel)
     out = args.out or os.path.splitext(args.mel_npy)[0] + "_vocoded.wav"
     write_wav(out, wav, 16_000)
     print(f"wrote {out} ({len(wav) / 16_000:.2f}s)")
@@ -188,6 +254,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="dvc_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("train")
+    _add_model_args(p)
+    p.set_defaults(fn=cmd_train)
+
     p = sub.add_parser("convert")
     _add_model_args(p)
     p.add_argument("--src_spk", default="VCTK-Corpus_wav16_p225")
@@ -196,7 +266,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_vocoder_args(p)
     p.add_argument("--long_context", action="store_true")
     _add_fs_args(p)
-    p.add_argument("--profile_transfer", action="store_true")
+    p.add_argument("--profile_transfer", action="store_true",
+                   help="model-free DSP conversion: shift the source mel by the "
+                        "difference of the speakers' mean profiles (no checkpoint)")
     p.add_argument("--analyze", action="store_true")
     p.set_defaults(fn=cmd_convert)
 
@@ -218,7 +290,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_vocoder_args(p)
     p.add_argument("--pipeline", default="mel", choices=["mel", "world"])
     _add_fs_args(p)
-    p.add_argument("--profile_transfer", action="store_true")
+    p.add_argument("--profile_transfer", action="store_true",
+                   help="serve the model-free DSP conversion (no checkpoint); "
+                        "the vocoder is the only device work")
     p.set_defaults(fn=cmd_serve)
     return parser
 

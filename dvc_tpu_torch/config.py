@@ -1,14 +1,20 @@
-"""Typed configuration: the dataclasses the serving path reads.
+"""Typed configuration: the dataclasses the serving and training paths read.
 
-A copy of dvc_tpu/config.py's AudioConfig, VAEConfig, VocoderConfig and
-Config (the port imports nothing of dvc_tpu), cut to the fields the port
-reads; names and defaults are dvc_tpu's.
+A copy of dvc_tpu/config.py's AudioConfig, VAEConfig, LossConfig,
+TrainConfig, VocoderConfig and Config (the port imports nothing of
+dvc_tpu), cut to the fields the port reads; names and defaults are
+dvc_tpu's.  TrainConfig has no ``donate_state``: there is no jit to donate
+to.  ``remat``, ``checkpoint_format="orbax"`` and LossConfig's ``adv_*``
+fields are kept so a dvc_tpu config reads the same, but the trainer refuses
+them as not yet ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Any, Sequence
 
 
 @dataclass(frozen=True)
@@ -45,6 +51,9 @@ class VAEConfig:
     kernel_size: int = 5
     bn_momentum: float = 0.9      # flax momentum = 1 - torch 0.1
     bn_eps: float = 1e-5
+    # run the GVAE pair as one 2B-batch pass with per-half (grouped)
+    # BatchNorm statistics; the unfused path runs each half on its own
+    pair_fused: bool = True
 
     @property
     def content_size(self) -> int:
@@ -53,6 +62,38 @@ class VAEConfig:
     @property
     def flat_size(self) -> int:
         return self.frames * 2 * self.dim_neck
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss coefficients (reference train.py:42-45, model/disentangled_vae.py:310-327)."""
+
+    mse_cof: float = 10.0
+    kl_cof: float = 10.0
+    style_cof: float = 0.1       # computed/logged but NOT in the total (parity quirk)
+    beta_cof: float = 0.1
+    adv_cof: float = 0.0         # > 0: the adversarial regularizer, not yet ported
+    adv_speakers: int = 0
+    adv_lr: float = 1e-3
+    adv_mode: str = "confusion"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Trainer settings (reference training.sh:1-13, train.py:13-47)."""
+
+    batch_size: int = 8
+    learning_rate: float = 1e-4
+    epochs: int = 200_000
+    report_interval: int = 50
+    seed: int = 1
+    samples_length: int = 64
+    # "bfloat16" rounds the two input batches to bf16; the model computes in
+    # float32 either way, as dvc_tpu's does (its layers promote bf16 inputs
+    # with float32 parameters back to float32)
+    compute_dtype: str = "bfloat16"
+    remat: bool = False               # not yet ported
+    checkpoint_format: str = "msgpack"  # the port writes .pth; "orbax" not yet ported
 
 
 @dataclass(frozen=True)
@@ -84,4 +125,12 @@ class VocoderConfig:
 class Config:
     audio: AudioConfig = field(default_factory=AudioConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=4, default=str)
+
+    def replace(self, **kw: Any) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -100,6 +100,17 @@ def profile_transfer_mel(source_mel: np.ndarray, src_profile: np.ndarray,
     return np.clip(src + shift, 0.0, 1.0)
 
 
+def speaker_mel_profile(mel_fps, max_utterances: int = 32) -> np.ndarray:
+    """Mean spectral profile (80,) of a speaker: the time-mean mel averaged
+    over up to ``max_utterances`` of the speaker's .npy files, the statistic
+    profile_transfer_mel shifts between."""
+    profs = [np.asarray(np.load(fp), np.float32).mean(axis=1)
+             for fp in list(mel_fps)[:max_utterances]]
+    if not profs:
+        raise FileNotFoundError("no mel .npy files to build a profile from")
+    return np.mean(profs, axis=0)
+
+
 @dataclass
 class VoiceConverter:
     """Directory-level runner mirroring voice_conversion_mel's file handling:
@@ -107,15 +118,18 @@ class VoiceConverter:
     target utterance, written under a per-pair save dir.
 
     Target files are sorted before the random pick, so a seed picks the same
-    target utterance on any filesystem (dvc_tpu globs them unsorted).  The
-    whole-utterance ``long_context`` encoder and the mel PNGs are not ported
-    yet."""
+    target utterance on any filesystem (dvc_tpu globs them unsorted).
+    ``profile_transfer`` is the model-free DSP conversion
+    (profile_transfer_mel between the speakers' mean profiles; ``model`` may
+    be None).  The whole-utterance ``long_context`` encoder and the mel PNGs
+    are not ported yet."""
 
     cfg: Config
-    model: DisentangledVAE
+    model: DisentangledVAE | None
     seed: int = 0
     long_context: bool = False
     fs_mask: np.ndarray | None = None
+    profile_transfer: bool = False
 
     def convert_speaker_pair(self, dataset_fp: str, src_spk: str, trg_spk: str,
                              generation_dir: str, num_utterances: int = 2,
@@ -136,6 +150,13 @@ class VoiceConverter:
         if not trg_fps:
             raise FileNotFoundError(
                 f"no mel .npy files for target speaker {trg_spk!r} under {dataset_fp}")
+        if self.profile_transfer:
+            if self.fs_mask is not None:
+                raise ValueError(
+                    "--profile_transfer is a model-free DSP conversion; it "
+                    "cannot be combined with --fs_mask or --long_context")
+            src_prof = speaker_mel_profile(src_fps)
+            trg_prof = speaker_mel_profile(trg_fps)
         results = []
         for i in range(min(num_utterances, len(src_fps))):
             source_mel = np.load(src_fps[i])
@@ -143,8 +164,13 @@ class VoiceConverter:
             # "<spk>_<utt>_mel.npy" -> "<utt>" (reference naming)
             parts = os.path.basename(src_fps[i]).split(".")[0].split("_")
             utt_id = parts[-2] if len(parts) >= 2 else str(i)
-            recons, converted = convert_mel(self.model, source_mel, target_mel,
-                                            self.cfg.vae.frames, fs_mask=self.fs_mask)
+            if self.profile_transfer:
+                # recons slot = the source itself: there is no autoencoder
+                recons = source_mel
+                converted = profile_transfer_mel(source_mel, src_prof, trg_prof)
+            else:
+                recons, converted = convert_mel(self.model, source_mel, target_mel,
+                                                self.cfg.vae.frames, fs_mask=self.fs_mask)
             results.append([utt_id, recons, converted])
 
         if vocoder is not None:

@@ -8,10 +8,10 @@ ConvNorm takes (B, C, T) and LinearNorm acts on the last axis.
 - ConvNorm / LinearNorm: xavier init (gain 1, the only gain the VAE uses)
   with the reference's bias override (Linear 0.01, Conv 0;
   disentangled_vae.py:22-25).
-- BatchNorm: ``nn.BatchNorm1d``; served in eval mode, where it normalizes by
-  the running statistics exactly as dvc_tpu's (layers.py:154-157).  Momentum
-  0.1 is flax's 0.9.  The pair-fused (grouped) train-mode statistics wait for
-  the training slice.
+- BatchNorm: an ``nn.BatchNorm1d`` (same state-dict names) whose train mode
+  is dvc_tpu's _GroupedBN (layers.py:140-178): statistics per group of the
+  batch; in eval mode it normalizes by the running statistics, exactly as
+  dvc_tpu's (layers.py:154-157).  Momentum 0.1 is flax's 0.9.
 - LSTM: ``nn.LSTM`` (batch_first); its gate order i, f, g, o is the order
   dvc_tpu's LSTM keeps (layers.py:190-223), so weights carry over as they are.
 """
@@ -53,6 +53,41 @@ class ConvNorm(nn.Module):
         return self.conv(x)
 
 
-def batch_norm(channels: int, momentum: float = 0.9, eps: float = 1e-5) -> nn.BatchNorm1d:
-    """torch BatchNorm1d from dvc_tpu's (flax) momentum convention."""
-    return nn.BatchNorm1d(channels, eps=eps, momentum=1.0 - momentum)
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over (B, C, T), with dvc_tpu's (flax) momentum convention.
+
+    Train mode treats the batch as ``groups`` stacked sub-batches (the two
+    halves of a pair-fused GVAE pass when groups = 2) and computes, in
+    float32, each group's mean and biased variance over (B/groups, T); it
+    normalizes each group by its own.  The running statistics move ONCE a
+    call, towards the mean over groups of the means and of the biased
+    variances times n/(n-1), n = (B/groups)*T.  Calling
+    ``nn.BatchNorm1d`` once on the 2B batch (one set of statistics), or
+    once per half (two moving-average updates), would each differ from
+    dvc_tpu's pair-fused step.  groups = 1 is torch's own train-mode rule."""
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
+                 groups: int = 1):
+        super().__init__(channels, eps=eps, momentum=1.0 - momentum)
+        self.groups = groups
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        g = self.groups
+        b, c, t = x.shape
+        if b % g:
+            raise ValueError(f"batch {b} does not split into {g} groups")
+        xg = x.reshape(g, b // g, c, t).to(torch.float32)
+        mean = xg.mean(dim=(1, 3), keepdim=True)                 # (g, 1, C, 1)
+        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, c, t).to(x.dtype)
+        y = y * self.weight[:, None] + self.bias[:, None]
+        with torch.no_grad():
+            n = (b // g) * t
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.mean(0).flatten(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.mean(0).flatten(),
+                                                alpha=m * n / max(n - 1, 1))
+            self.num_batches_tracked.add_(1)
+        return y

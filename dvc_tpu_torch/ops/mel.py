@@ -71,8 +71,16 @@ def amp_to_db(x: torch.Tensor, min_level_db: float = -100.0) -> torch.Tensor:
     return 20.0 * torch.log10(torch.clamp(x, min=min_level))
 
 
+def db_to_amp(x: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, x * 0.05)
+
+
 def normalize_mel(s_db: torch.Tensor, min_level_db: float = -100.0) -> torch.Tensor:
     return torch.clamp((s_db - min_level_db) / -min_level_db, 0.0, 1.0)
+
+
+def denormalize_mel(s: torch.Tensor, min_level_db: float = -100.0) -> torch.Tensor:
+    return torch.clamp(s, 0.0, 1.0) * -min_level_db + min_level_db
 
 
 def melspectrogram(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:

@@ -15,10 +15,14 @@ dvc_tpu/serve.py's mel route).
 Endpoints (stdlib http.server):
   GET  /health                      -> {"status": "ok", "speakers": [...]}
   GET  /stats                       -> counters incl. batching ratio
-  POST /convert?trg_spk=<spk>       -> body: wav bytes; reply: wav bytes
-                                       (npy bytes of the mel without a vocoder)
+  POST /convert?trg_spk=<spk>       -> body: wav bytes at any sample rate
+                                       (resampled to 16 kHz on the service's
+                                       device); reply: wav bytes (npy bytes of
+                                       the mel without a vocoder)
 
-The profile-transfer and WORLD routes are not ported yet.
+Two services share the queue and worker: ConversionService (the VAE latent
+swap) and ProfileTransferService (``serve --profile_transfer``, the
+model-free DSP route).  The WORLD route is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ import numpy as np
 import torch
 
 from dvc_tpu_torch.config import Config
+from dvc_tpu_torch.convert.conversion import profile_transfer_mel, speaker_mel_profile
 from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+from dvc_tpu_torch.ops.audio import resample_poly
 from dvc_tpu_torch.ops.chunk import chunk_mel, num_chunks
 from dvc_tpu_torch.ops.mel import melspectrogram
 from dvc_tpu_torch.ops.stft import num_frames
@@ -68,31 +74,19 @@ class _Request:
     t_submit: float = field(default_factory=time.monotonic)
 
 
-class ConversionService:
-    """Mel conversion engine with a micro-batching worker thread.
+class _MicroBatchService:
+    """Queue and worker shared by the services: concurrent requests drain
+    into one batch (submit/_drain/_run); subclasses implement
+    _process(batch).  A request's cost is its number of 64-frame chunks."""
 
-    ``model`` is a DisentangledVAE; it is moved to ``device`` and served in
-    eval mode and float32."""
-
-    def __init__(self, cfg: Config, model: DisentangledVAE, dataset_fp: str,
-                 vocoder=None, max_batch_chunks: int = 64, max_wait_ms: float = 10.0,
-                 max_queue: int = 256, fs_mask: np.ndarray | None = None,
-                 device: str | torch.device = "cuda"):
+    def _start(self, cfg: Config, dataset_fp: str, vocoder, device,
+               max_batch_chunks: int, max_wait_ms: float, max_queue: int):
         self.cfg = cfg
         self.device = resolve_device(device)
-        # float32 VAE: cuDNN convolutions default to TF32, which the
-        # reference parity does not allow
-        use_exact_float32()
-        self.model = model.to(self.device).eval()
         self.dataset_fp = dataset_fp
         self.vocoder = vocoder
         self.output_is_wav = vocoder is not None
         self._frames = cfg.vae.frames
-        self._mask = None if fs_mask is None else torch.as_tensor(
-            np.asarray(fs_mask, np.float32), device=self.device)
-        self._style_cache: dict[str, torch.Tensor] = {}
-        self._style_lock = threading.Lock()
-
         self.max_wait_ms = max_wait_ms
         self.max_batch_cost = max_batch_chunks
         self._q: queue.Queue[_Request] = queue.Queue(maxsize=max_queue)
@@ -103,56 +97,18 @@ class ConversionService:
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
-    # -- model passes --------------------------------------------------------
-
-    @torch.inference_mode()
-    def _convert(self, chunks: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
-        """chunks (N, 80, F), styles (N, D): encode the source content, swap
-        in the cached target vector, decode + postnet, clamp.
-
-        Plain swap: styles are the target's mean style_mu.  FS-masked swap:
-        styles are the target's mean FULL latent, taken on every masked dim
-        (the style dims always are), so source style never reaches the
-        decoder."""
-        m = self.model
-        style_mu, _, content_mu, _ = m.encode(chunks)
-        if self._mask is None:
-            z = torch.cat([styles, content_mu], -1)
-        else:
-            src_z = torch.cat([style_mu, content_mu], -1)
-            z = src_z * (1.0 - self._mask) + styles * self._mask
-        mel = m.decode(z)
-        mel = mel + m.postnet(mel)
-        return torch.clamp(mel, 0.0, 1.0)
-
-    @torch.inference_mode()
-    def _style_of(self, chunks: torch.Tensor) -> torch.Tensor:
-        style_mu, _, content_mu, _ = self.model.encode(chunks)
-        if self._mask is None:
-            return style_mu.mean(0)
-        return torch.cat([style_mu, content_mu], -1).mean(0)
-
-    # -- target styles -------------------------------------------------------
-
     def speakers(self) -> list[str]:
         return sorted(d for d in os.listdir(self.dataset_fp)
                       if os.path.isdir(os.path.join(self.dataset_fp, d)))
 
-    def target_style(self, spk: str) -> torch.Tensor:
-        with self._style_lock:
-            hit = self._style_cache.get(spk)
-            if hit is not None:
-                return hit
-        fps = sorted(glob(os.path.join(self.dataset_fp, spk, "*.npy")))
-        if not fps:
-            raise KeyError(f"unknown target speaker {spk!r}")
-        chunks = [chunk_mel(torch.as_tensor(np.load(fp), dtype=torch.float32,
-                                            device=self.device), self._frames)
-                  for fp in fps]
-        style = self._style_of(torch.cat(chunks, 0))
-        with self._style_lock:
-            self._style_cache[spk] = style
-        return style
+    def _process(self, batch: list[_Request]) -> None:
+        raise NotImplementedError
+
+    def _vocode(self, mels: list[np.ndarray]) -> list[np.ndarray]:
+        if self.vocoder is None:
+            return mels  # mel-out mode: return the mel itself
+        batch_fn = getattr(self.vocoder, "batch", None)
+        return batch_fn(mels) if batch_fn is not None else [self.vocoder(m) for m in mels]
 
     # -- queue and worker ----------------------------------------------------
 
@@ -223,6 +179,76 @@ class ConversionService:
             self.stats["batches"] += 1
             self.stats["chunks"] += n_chunks
 
+
+class ConversionService(_MicroBatchService):
+    """Mel conversion engine with a micro-batching worker thread.
+
+    ``model`` is a DisentangledVAE; it is moved to ``device`` and served in
+    eval mode and float32."""
+
+    def __init__(self, cfg: Config, model: DisentangledVAE, dataset_fp: str,
+                 vocoder=None, max_batch_chunks: int = 64, max_wait_ms: float = 10.0,
+                 max_queue: int = 256, fs_mask: np.ndarray | None = None,
+                 device: str | torch.device = "cuda"):
+        dev = resolve_device(device)
+        # float32 VAE: cuDNN convolutions default to TF32, which the
+        # reference parity does not allow
+        use_exact_float32()
+        self.model = model.to(dev).eval()
+        self._mask = None if fs_mask is None else torch.as_tensor(
+            np.asarray(fs_mask, np.float32), device=dev)
+        self._style_cache: dict[str, torch.Tensor] = {}
+        self._style_lock = threading.Lock()
+        self._start(cfg, dataset_fp, vocoder, dev, max_batch_chunks, max_wait_ms,
+                    max_queue)
+
+    # -- model passes --------------------------------------------------------
+
+    @torch.inference_mode()
+    def _convert(self, chunks: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+        """chunks (N, 80, F), styles (N, D): encode the source content, swap
+        in the cached target vector, decode + postnet, clamp.
+
+        Plain swap: styles are the target's mean style_mu.  FS-masked swap:
+        styles are the target's mean FULL latent, taken on every masked dim
+        (the style dims always are), so source style never reaches the
+        decoder."""
+        m = self.model
+        style_mu, _, content_mu, _ = m.encode(chunks)
+        if self._mask is None:
+            z = torch.cat([styles, content_mu], -1)
+        else:
+            src_z = torch.cat([style_mu, content_mu], -1)
+            z = src_z * (1.0 - self._mask) + styles * self._mask
+        mel = m.decode(z)
+        mel = mel + m.postnet(mel)
+        return torch.clamp(mel, 0.0, 1.0)
+
+    @torch.inference_mode()
+    def _style_of(self, chunks: torch.Tensor) -> torch.Tensor:
+        style_mu, _, content_mu, _ = self.model.encode(chunks)
+        if self._mask is None:
+            return style_mu.mean(0)
+        return torch.cat([style_mu, content_mu], -1).mean(0)
+
+    # -- target styles -------------------------------------------------------
+
+    def target_style(self, spk: str) -> torch.Tensor:
+        with self._style_lock:
+            hit = self._style_cache.get(spk)
+            if hit is not None:
+                return hit
+        fps = sorted(glob(os.path.join(self.dataset_fp, spk, "*.npy")))
+        if not fps:
+            raise KeyError(f"unknown target speaker {spk!r}")
+        chunks = [chunk_mel(torch.as_tensor(np.load(fp), dtype=torch.float32,
+                                            device=self.device), self._frames)
+                  for fp in fps]
+        style = self._style_of(torch.cat(chunks, 0))
+        with self._style_lock:
+            self._style_cache[spk] = style
+        return style
+
     def _process(self, batch: list[_Request]):
         frames = self._frames
         all_chunks, styles, spans = [], [], []
@@ -258,27 +284,75 @@ class ConversionService:
             mel = out[start:start + count]           # (count, 80, F)
             mels.append(mel.transpose(1, 0, 2).reshape(mel.shape[1], -1).astype(np.float32))
             owners.append(r)
-        if self.vocoder is not None:
-            batch_fn = getattr(self.vocoder, "batch", None)
-            wavs = batch_fn(mels) if batch_fn is not None else [self.vocoder(m) for m in mels]
-        else:
-            wavs = mels  # mel-out mode: return the mel itself
-        self._finish(owners, wavs, n)
+        self._finish(owners, self._vocode(mels), n)
 
 
-def make_http_server(service: ConversionService, host: str = "127.0.0.1",
+class ProfileTransferService(_MicroBatchService):
+    """``serve --profile_transfer``: the model-free DSP conversion route
+    (dvc_tpu/serve.py:318-400).
+
+    No checkpoint: converted = the source mel shifted by (the target
+    speaker's mean spectral profile - the source's), clipped to [0, 1]
+    (profile_transfer_mel).  A request carries no source-speaker label, so
+    the source profile is the request utterance's own time-mean mel; target
+    profiles are computed once per speaker from dataset_fp and cached.  The
+    vocoder is the only device work; ``device`` is where the HTTP front end
+    resamples and computes mels."""
+
+    def __init__(self, cfg: Config, dataset_fp: str, vocoder=None,
+                 max_batch_chunks: int = 64, max_wait_ms: float = 10.0,
+                 max_queue: int = 256, device: str | torch.device = "cuda"):
+        self._prof_cache: dict[str, np.ndarray] = {}
+        self._prof_lock = threading.Lock()
+        self._start(cfg, dataset_fp, vocoder, device, max_batch_chunks, max_wait_ms,
+                    max_queue)
+
+    def target_profile(self, spk: str) -> np.ndarray:
+        with self._prof_lock:
+            hit = self._prof_cache.get(spk)
+            if hit is not None:
+                return hit
+        fps = sorted(glob(os.path.join(self.dataset_fp, spk, "*.npy")))
+        if not fps:
+            raise KeyError(f"unknown target speaker {spk!r}")
+        prof = speaker_mel_profile(fps)
+        with self._prof_lock:
+            self._prof_cache[spk] = prof
+        return prof
+
+    def _process(self, batch: list[_Request]):
+        mels, owners, n = [], [], 0
+        for r in batch:
+            if r.abandoned:
+                continue
+            try:
+                prof = self.target_profile(r.trg_spk)
+            except Exception as e:
+                self._fail_request(r, e)
+                continue
+            src = np.asarray(r.payload, np.float32)
+            mels.append(profile_transfer_mel(src, src.mean(axis=1), prof))
+            owners.append(r)
+            n += num_chunks(src.shape[1], self._frames)
+        if owners:
+            self._finish(owners, self._vocode(mels), n)
+
+
+def make_http_server(service: _MicroBatchService, host: str = "127.0.0.1",
                      port: int = 7860) -> ThreadingHTTPServer:
     audio_cfg = service.cfg.audio
 
-    def mel_fn(wav: np.ndarray) -> np.ndarray:
-        # bucket the sample count to a power of two (zero-padding extends the
-        # framing's own zero padding, so the first num_frames(orig) frames
-        # are unchanged), then crop to the true frame count
-        n = len(wav)
-        padded = np.zeros(_bucket(max(n, audio_cfg.hop_size)), np.float32)
-        padded[:n] = wav
+    def mel_fn(wav: np.ndarray, sr: int) -> np.ndarray:
+        # resample to the model's rate on the service's device, bucket the
+        # sample count to a power of two (zero-padding extends the framing's
+        # own zero padding, so the first num_frames(orig) frames are
+        # unchanged), then crop to the true frame count
         with torch.inference_mode():
-            mel = melspectrogram(torch.from_numpy(padded).to(service.device), audio_cfg)
+            x = resample_poly(torch.from_numpy(wav).to(service.device), sr,
+                              audio_cfg.sample_rate)
+            n = x.shape[-1]
+            x = torch.nn.functional.pad(x, (0, _bucket(max(n, audio_cfg.hop_size)) - n))
+            mel = melspectrogram(x, audio_cfg)
         return mel[:, :num_frames(n, audio_cfg.fft_size, audio_cfg.hop_size)].cpu().numpy()
 
     class Handler(BaseHTTPRequestHandler):
@@ -340,12 +414,8 @@ def make_http_server(service: ConversionService, host: str = "127.0.0.1",
             except ValueError as e:
                 self._json(400, {"error": str(e)})
                 return
-            if sr != audio_cfg.sample_rate:
-                self._json(400, {"error": f"sample rate {sr} != {audio_cfg.sample_rate}: "
-                                          "resampling not yet ported"})
-                return
             try:
-                out = service.submit(mel_fn(np.asarray(wav, np.float32)), trg)
+                out = service.submit(mel_fn(np.asarray(wav, np.float32), sr), trg)
             except KeyError as e:
                 # speaker dir listed but empty, or removed after the check
                 self._json(404, {"error": str(e)})

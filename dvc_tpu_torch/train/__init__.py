@@ -1,1 +1,2 @@
-"""Training (not yet ported) and checkpoint discovery (load side)."""
+"""Training: the group-VAE losses, the trainer, and checkpoint save,
+discovery and resume."""

@@ -1,0 +1,281 @@
+"""Training runtime of the disentangled VAE (port of dvc_tpu/train/trainer.py:50-453,
+without its mesh, adversary and Orbax branches).
+
+One train step is forward(pair) + loss + backward + Adam, eager on the
+device: cuDNN convolutions and LSTMs, cuBLAS matmuls, in exact float32
+(TF32 off, as the serving path).  Epoch and checkpoint semantics follow
+run_training (reference model/variational_base_vae.py:156-203): an
+epoch-indexed loop, per-epoch re-pairing of utterances, TensorBoard scalars
+with the reference's names, a checkpoint every ``report_interval`` epochs
+named ``DisentangledVAE_VCTK_{epoch}``, and resume from the newest one.
+
+``compute_dtype="bfloat16"`` (the default) rounds the two input batches to
+bf16 and computes in float32, as dvc_tpu does: its model is built with no
+dtype, so every flax layer promotes the bf16 input with its float32
+parameters back to float32 (dvc_tpu/train/trainer.py:53,81-87).  The loss
+is taken against the unrounded inputs.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from dvc_tpu_torch.config import Config
+from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+from dvc_tpu_torch.train import checkpoint as ckpt_lib
+from dvc_tpu_torch.train.losses import LossTerms, gvae_pair_loss
+from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+
+NOT_PORTED = "not yet ported — see ROADMAP.md"
+
+
+def unported_settings(cfg: Config) -> list[str]:
+    """The settings of ``cfg`` the port does not train with yet."""
+    out = []
+    if cfg.train.remat:
+        out.append("remat=True")
+    if cfg.train.checkpoint_format == "orbax":
+        out.append('checkpoint_format="orbax"')
+    if cfg.loss.adv_cof > 0:
+        out.append("adv_cof > 0 (the adversarial regularizer)")
+    if cfg.train.compute_dtype not in ("bfloat16", "float32"):
+        out.append(f"compute_dtype={cfg.train.compute_dtype!r}")
+    return out
+
+
+def create_model(cfg: Config, device: str | torch.device = "cuda") -> DisentangledVAE:
+    """The VAE in train mode on ``device``, its weights drawn from
+    ``cfg.train.seed`` (the global torch RNG is left as it was)."""
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.train.seed)
+        model = DisentangledVAE(cfg.vae, pair_fused=cfg.vae.pair_fused)
+    return model.to(dev).train()
+
+
+def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.Adam:
+    # torch.optim.Adam defaults (reference model/disentangled_vae.py:304),
+    # which is dvc_tpu's optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8)
+    return torch.optim.Adam(model.parameters(), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_train_step(model: DisentangledVAE, optimizer: torch.optim.Optimizer,
+                    mse_cof: float = 10.0, kl_cof: float = 10.0,
+                    compute_dtype: str = "float32") -> Callable:
+    """Build step(x1, x2, generator=None, eps=None) -> LossTerms (detached).
+
+    The model must be in train mode.  After a step each parameter's
+    ``.grad`` holds the gradient the optimizer applied; the BatchNorm
+    running statistics have moved as dvc_tpu's ``mutable=["batch_stats"]``
+    returns them."""
+    round_bf16 = compute_dtype == "bfloat16"
+
+    def step(x1: torch.Tensor, x2: torch.Tensor,
+             generator: torch.Generator | None = None, eps=None) -> LossTerms:
+        xin1, xin2 = x1, x2
+        if round_bf16:
+            xin1 = x1.to(torch.bfloat16).to(torch.float32)
+            xin2 = x2.to(torch.bfloat16).to(torch.float32)
+        outs = model(xin1, xin2, generator=generator, eps=eps)
+        terms = gvae_pair_loss(x1, x2, *outs, mse_cof=mse_cof, kl_cof=kl_cof)
+        optimizer.zero_grad(set_to_none=True)
+        terms.total.backward()
+        optimizer.step()
+        return LossTerms(*(t.detach() for t in terms))
+
+    return step
+
+
+@torch.no_grad()
+def eval_terms(model: DisentangledVAE, x1: torch.Tensor, x2: torch.Tensor,
+               generator: torch.Generator, mse_cof: float = 10.0,
+               kl_cof: float = 10.0) -> LossTerms:
+    """Eval-mode step (reference test(), model/variational_base_vae.py:105-123):
+    running BN statistics, the content posteriors' means; z_style is still
+    sampled (reference quirk, model/disentangled_vae.py:261), from
+    ``generator``."""
+    was_training = model.training
+    model.eval()
+    try:
+        outs = model(x1, x2, generator=generator)
+    finally:
+        model.train(was_training)
+    return gvae_pair_loss(x1, x2, *outs, mse_cof=mse_cof, kl_cof=kl_cof)
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The noise seed of one train step, a function of (seed, step) only, as
+    dvc_tpu folds the step into its key: a resumed run draws what an
+    uninterrupted one would."""
+    return (seed * 1_000_003 + step) % (2 ** 63)
+
+
+@dataclass
+class Trainer:
+    """Host-side training loop (mirrors run_training,
+    model/variational_base_vae.py:156-203)."""
+
+    cfg: Config
+    checkpoints_path: str = ""
+    logs_path: str = ""
+    run_name: str = ckpt_lib.RUN_NAME
+    device: str | torch.device = "cuda"
+    step: int = field(default=0, init=False)
+
+    def __post_init__(self):
+        bad = unported_settings(self.cfg)
+        if bad:
+            raise NotImplementedError(f"{', '.join(bad)}: {NOT_PORTED}")
+        self.device = resolve_device(self.device)
+        use_exact_float32()  # float32 training, never TF32
+        self.model = create_model(self.cfg, self.device)
+        self.optimizer = make_optimizer(self.model, self.cfg.train.learning_rate)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, mse_cof=self.cfg.loss.mse_cof,
+            kl_cof=self.cfg.loss.kl_cof, compute_dtype=self.cfg.train.compute_dtype)
+        self._gen = torch.Generator(device=self.device)
+        self._writer = None
+        self._clamp_logged = False
+
+    # -- checkpointing (latest-wins by epoch parsed from the filename) ------
+
+    def load_last(self, require: bool = False) -> int:
+        """Resume from the newest checkpoint (weights, BN statistics, Adam
+        state and step); returns the next epoch (1 when none is found).
+        require=True raises instead."""
+        loaded = None
+        if self.checkpoints_path:
+            loaded = ckpt_lib.load_train_state(self.checkpoints_path, self.model,
+                                               self.optimizer, self.run_name)
+        if loaded is None:
+            if require:
+                raise FileNotFoundError(
+                    f"no checkpoint found under {self.checkpoints_path!r} — "
+                    "train first, or check --log_dir")
+            return 1
+        epoch, self.step = loaded
+        return epoch + 1
+
+    def save(self, epoch: int) -> str:
+        return ckpt_lib.save_checkpoint(self.checkpoints_path, self.run_name, epoch,
+                                        self.model, self.optimizer, self.step)
+
+    # -- steps ----------------------------------------------------------------
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            self.device, non_blocking=True)
+
+    def step_on(self, x1: torch.Tensor, x2: torch.Tensor) -> LossTerms:
+        """One train step on device batches, with this step's noise."""
+        self._gen.manual_seed(_step_seed(self.cfg.train.seed + 1, self.step))
+        terms = self.train_step(x1, x2, generator=self._gen)
+        self.step += 1
+        return terms
+
+    # -- epoch loops ---------------------------------------------------------
+
+    def _effective_batch_size(self, dataset, logging_func=print) -> int:
+        """Partial batches are dropped, so a dataset smaller than the batch
+        would train nothing: clamp to the pair count, and fail loudly when
+        there is no pair at all."""
+        bs = self.cfg.train.batch_size
+        n_pairs = len(dataset)
+        if n_pairs >= bs:
+            return bs
+        if n_pairs <= 0:
+            raise ValueError("dataset yields no same-speaker pair; add data")
+        if not self._clamp_logged:
+            logging_func(f"batch_size {bs} > {n_pairs} available pairs; "
+                         f"training with batch {n_pairs}")
+            self._clamp_logged = True
+        return n_pairs
+
+    def train_epoch(self, dataset, epoch: int) -> dict[str, float]:
+        """One pass over the paired dataset; returns the summed loss terms
+        and the batch count."""
+        from dvc_tpu_torch.data.dataset import prefetch
+
+        self.model.train()
+        totals = torch.zeros(len(LossTerms._fields), dtype=torch.float64,
+                             device=self.device)
+        n_batches = 0
+        for x1, x2, _spk in prefetch(dataset.batches(self._effective_batch_size(dataset))):
+            terms = self.step_on(self._to_device(x1), self._to_device(x2))
+            totals += torch.stack(terms).to(torch.float64)
+            n_batches += 1
+        dataset.shuffle_data()  # re-pair utterances (reference :96)
+        out = dict(zip(LossTerms._fields, totals.tolist()))
+        out["n_batches"] = n_batches
+        return out
+
+    def run_training(self, dataset, epochs: int, report_interval: int | None = None,
+                     reload_model: bool = True, logging_func=print) -> list[dict]:
+        """Train ``epochs`` epochs from the resume point (the reference's
+        range(start_epoch, start_epoch + epochs)); returns each epoch's mean
+        loss terms."""
+        report_interval = report_interval or self.cfg.train.report_interval
+        start_epoch = self.load_last() if reload_model else 1
+        writer = self._get_writer()
+        self._effective_batch_size(dataset, logging_func=logging_func)
+        history = []
+        for epoch in range(start_epoch, start_epoch + epochs):
+            t0 = time.time()
+            totals = self.train_epoch(dataset, epoch)
+            n = max(totals.pop("n_batches"), 1)
+            means = {k: v / n for k, v in totals.items()}
+            history.append(means)
+            logging_func(f"====> Epoch: {epoch} loss {means['total']:.4f} "
+                         f"({time.time() - t0:.2f}s)")
+            if writer is not None:
+                # same scalar names as reference :187-191
+                writer.add_scalar("Loss\\Reconstruction Loss1", means["mse_x1"], epoch)
+                writer.add_scalar("Loss\\Reconstruction Loss2", means["mse_x2"], epoch)
+                writer.add_scalar("Loss\\Z1 KL Loss", means["z1_kl"], epoch)
+                writer.add_scalar("Loss\\Z2 KL Loss", means["z2_kl"], epoch)
+                writer.add_scalar("Loss\\Z KL Style", means["z_style_kl"], epoch)
+            if self.checkpoints_path and epoch % report_interval == 0:
+                self.save(epoch)
+        if writer is not None:
+            writer.flush()
+        return history
+
+    def evaluate(self, dataset, logging_func=print) -> dict[str, float]:
+        """Eval-mode pass (reference test(), variational_base_vae.py:105-123):
+        running BN statistics, the posteriors' means, mean loss terms.  The
+        z_style noise is seeded with 0 for every batch, as dvc_tpu's
+        PRNGKey(0)."""
+        totals = np.zeros(len(LossTerms._fields), np.float64)
+        n = 0
+        gen = torch.Generator(device=self.device)
+        for x1, x2, _spk in dataset.batches(self._effective_batch_size(dataset),
+                                            shuffle=False):
+            gen.manual_seed(0)
+            terms = eval_terms(self.model, self._to_device(x1), self._to_device(x2),
+                               gen, self.cfg.loss.mse_cof, self.cfg.loss.kl_cof)
+            totals += torch.stack(terms).double().cpu().numpy()
+            n += 1
+        out = {k: float(v / max(n, 1)) for k, v in zip(LossTerms._fields, totals)}
+        logging_func(f"====> Test recons loss: {out['mse_x1']:.4f} - "
+                     f"VLB: {out['total']:.4f}")
+        return out
+
+    def _get_writer(self):
+        if self._writer is None and self.logs_path:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:  # no tensorboard package: no writer, as dvc_tpu
+                return None
+            self._writer = SummaryWriter(f"{self.logs_path}/{self.run_name}")
+        return self._writer
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None

@@ -15,10 +15,13 @@ MODULES = [
     "dvc_tpu_torch", "dvc_tpu_torch.config", "dvc_tpu_torch.utils.wavio",
     "dvc_tpu_torch.utils.device", "dvc_tpu_torch.utils.convert",
     "dvc_tpu_torch.ops.stft", "dvc_tpu_torch.ops.mel", "dvc_tpu_torch.ops.chunk",
+    "dvc_tpu_torch.ops.audio", "dvc_tpu_torch.data.dataset",
     "dvc_tpu_torch.models.layers", "dvc_tpu_torch.models.disentangled_vae",
     "dvc_tpu_torch.models.wavenet", "dvc_tpu_torch.kernels._build",
     "dvc_tpu_torch.kernels.wavenet_step", "dvc_tpu_torch.convert.vocode",
-    "dvc_tpu_torch.convert.conversion", "dvc_tpu_torch.train.checkpoint",
+    "dvc_tpu_torch.convert.conversion", "dvc_tpu_torch.convert.griffinlim",
+    "dvc_tpu_torch.train.checkpoint", "dvc_tpu_torch.train.losses",
+    "dvc_tpu_torch.train.trainer",
     "dvc_tpu_torch.serve", "dvc_tpu_torch.cli.run", "dvc_tpu_torch.tools._common",
     "dvc_tpu_torch.tools.bench_taps", "dvc_tpu_torch.tools.bench_body",
     "dvc_tpu_torch.tools.bench_body2", "dvc_tpu_torch.tools.ablate_body",
@@ -38,7 +41,7 @@ def test_every_module_is_listed():
     assert on_disk - set(MODULES) <= {
         "dvc_tpu_torch.utils", "dvc_tpu_torch.ops", "dvc_tpu_torch.models",
         "dvc_tpu_torch.kernels", "dvc_tpu_torch.convert", "dvc_tpu_torch.train",
-        "dvc_tpu_torch.cli", "dvc_tpu_torch.tools"}
+        "dvc_tpu_torch.cli", "dvc_tpu_torch.tools", "dvc_tpu_torch.data"}
 
 
 def test_import_pulls_in_no_jax_subprocess():
