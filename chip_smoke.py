@@ -5,7 +5,8 @@
 
 Phases; any failure exits non-zero before a result line is printed:
   1. build  every kernel under dvc_tpu_torch/kernels/csrc, one nvcc each,
-            all started together;
+            and the native engines under dvc_tpu_torch/native, one g++
+            each, all started together;
   2. kernel the WaveNet sampler kernel against its plain PyTorch version at
             the full VocoderConfig width (24 layers, 512 channels), under the
             doctored deterministic head (mixture 0 dominates, log scales
@@ -83,9 +84,28 @@ Phases; any failure exits non-zero before a result line is printed:
             44.1 kHz); Griffin-Lim (after one iteration, and by spectral
             convergence after 32) and resample_poly on the card against the
             CPU.
+ 10. recipe the verify recipe through the CLI on the card at full width
+            (AudioConfig, VAEConfig, WORLD at 5 ms and 36 coefficients), in
+            a temporary directory: a VCTK-layout corpus (4 speakers x 12
+            utterances of 2-4 s, harmonic with a moving f0, a noise floor
+            and a 0.5-1 s silent gap; one speaker at 48 kHz) -> `preprocess`
+            as a child process with the gmm VAD trim and with --no_trim
+            (file counts, (80, T) mels in [0, 1], every mel against the
+            port's CPU run, the VAD masks on the card equal to the CPU's) ->
+            (the two at once, beside the CPU runs here) ->
+            `train` 2 epochs at batch 8 on the --no_trim mels (.msgpack,
+            .pth and .opt.pth; the .msgpack alone resumes to the .pth
+            pair's weights, Adam state and step) -> `convert` for two
+            speaker pairs with Griffin-Lim at once, and in this process one
+            utterance with --vocoder_ckpt at a WaveNet .msgpack written from
+            seeded weights by the port's writer (exactly one
+            wavenet_persistent launch, by the profiler and by the counter)
+            -> `eval-mcd` (finite MCDs, sources against themselves 0.0,
+            each MCD within 1e-3 dB of the port's CPU analysis); seconds of
+            each step, the preprocess and analysis rates.
 Each phase prints its seconds.  The lines before the last report the card
 (nvidia-smi name and power limit), timings and one JSON line of kernels
-(phases 8-9 add none); the last line is
+(phases 8-10 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -543,6 +563,12 @@ GL_SC_RTOL = 0.1        # after 32 iterations the phase is chaotic at float32 re
                         # within 10% of each other, and under half of the zero-phase start's
 BENCH_BATCH, BENCH_FRAMES = 256, 64  # bench.py:40-41, the repo's train workload
 TRAIN_BATCH = 8         # training.sh
+MEL_CARD_ATOL = 1e-4    # phase 10, preprocess mels card against CPU, of the [0, 1] range:
+                        # cuFFT against pocketfft, float32 (tests hold the CPU to
+                        # dvc_tpu at 1e-5)
+MCD_CARD_ATOL = 1e-3    # phase 10, per-utterance MCD card against CPU, dB (the limit
+                        # of tests/test_torch_port_mcd.py against dvc_tpu)
+RECIPE_SPEAKERS = ("p225", "p226", "p227", "p228")  # p228 recorded at 48 kHz
 
 
 def make_corpus(mel_dir, dev, acfg, n_utts, seconds):
@@ -853,6 +879,284 @@ def serve_phase(card, dev, mel_dir, log_dir):
           f"resample_poly card vs CPU {r_err}")
 
 
+def recipe_corpus(root: str) -> dict[str, float]:
+    """Phase 10's VCTK-layout corpus under root/VCTK-Corpus/wav16: per
+    speaker 12 utterances of 2-4 s, two voiced stretches (harmonics of a
+    moving f0 up to 7.9 kHz) around a 0.5-1 s silent gap, over a noise
+    floor of std 0.01; the last speaker at 48 kHz.  Returns each file's
+    seconds."""
+    from dvc_tpu_torch.utils.wavio import write_wav
+    rng = np.random.RandomState(SEED + 20)
+    seconds = {}
+    for si, spk in enumerate(RECIPE_SPEAKERS):
+        sr = 48000 if si == 3 else 16000
+        d = os.path.join(root, "VCTK-Corpus", "wav16", spk)
+        os.makedirs(d)
+        for u in range(12):
+            total, gap = rng.uniform(2.0, 4.0), rng.uniform(0.5, 1.0)
+            first = rng.uniform(0.3, 0.7) * (total - gap)
+            n = int(sr * total)
+            t = np.arange(n) / sr
+            f0 = 95 + 30 * si + 4 * u + 25 * np.sin(2 * np.pi * rng.uniform(0.4, 1.2) * t)
+            ph = (2 * np.pi * np.cumsum(f0) / sr).astype(np.float32)
+            h = np.arange(1, 70, dtype=np.float32)[:, None]
+            voice = ((0.3 / h) * np.sin(h * ph[None] + rng.uniform(0, 6.3, (69, 1)).astype(
+                np.float32)) * (h * f0[None].astype(np.float32) < 7900)).sum(0)
+            voice[int(sr * first):int(sr * (first + gap))] = 0.0
+            wav = (voice + 0.01 * rng.randn(n)).astype(np.float32)
+            path = os.path.join(d, f"{spk}_{u:03d}.wav")
+            write_wav(path, wav, sr)
+            seconds[path] = n / sr
+    return seconds
+
+
+class Children:
+    """``python -m dvc_tpu_torch.cli.run <args> --device cuda`` as child
+    processes, started at once and waited for by name; any still running
+    when the phase ends or fails is killed."""
+
+    def __init__(self, log_dir):
+        self.log_dir = log_dir
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ, PYTHONPATH=self.root + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.jobs = {}
+
+    def start(self, name, args):
+        log_path = os.path.join(self.log_dir, f"{name}.log")
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "dvc_tpu_torch.cli.run", *args,
+                                     "--device", "cuda"], cwd=self.root, env=self.env,
+                                    stdout=log, stderr=subprocess.STDOUT)
+        self.jobs[name] = (proc, log_path, time.perf_counter())
+
+    def wait(self, name):
+        """(output, seconds from start to exit); fails with the output's
+        tail unless the child exited 0."""
+        proc, log_path, t0 = self.jobs.pop(name)
+        try:
+            rc = proc.wait(900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(30)
+        secs = time.perf_counter() - t0
+        with open(log_path) as log:
+            out = log.read()
+        check(rc == 0, f"`{name}` exited {rc}: {out[-3000:]}")
+        return out, secs
+
+    def kill_all(self):
+        for proc, _, _ in self.jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        self.jobs.clear()
+
+
+def recipe_phase(card, dev):
+    """Phase 10: the verify recipe (preprocess -> train -> convert ->
+    eval-mcd) through the CLI on the card at full width, held against the
+    port's CPU runs.  Independent children run at once, beside the
+    in-process CPU references."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as work:
+        kids = Children(work)
+        try:
+            recipe_steps(card, dev, work, kids)
+        finally:
+            kids.kill_all()
+
+
+def recipe_steps(card, dev, work, kids):
+    import shutil
+
+    from dvc_tpu_torch.cli import run as cli
+    from dvc_tpu_torch.config import AudioConfig, Config, TrainConfig, VocoderConfig
+    from dvc_tpu_torch.data.preprocess import preprocess_dataset, preprocess_wav_host
+    from dvc_tpu_torch.eval.mcd import analyze_wavs, evaluate_mcd_wav
+    from dvc_tpu_torch.kernels import wavenet_step as ws
+    from dvc_tpu_torch.models.wavenet import WaveNet
+    from dvc_tpu_torch.ops.audio import gmm_vad_mask
+    from dvc_tpu_torch.train.trainer import Trainer
+    from dvc_tpu_torch.utils import msgpack
+    from dvc_tpu_torch.utils.convert import wavenet_tree_from_state_dict
+    from dvc_tpu_torch.utils.wavio import read_wav
+    acfg = AudioConfig()
+    t0 = time.perf_counter()
+    vctk = os.path.join(work, "vctk")
+    seconds = recipe_corpus(vctk)
+    audio_s = sum(seconds.values())
+    wav16 = os.path.join(vctk, "VCTK-Corpus", "wav16")
+    print(f"recipe corpus [{card}]: {len(seconds)} wavs, {audio_s:.1f} s of audio "
+          f"({time.perf_counter() - t0:.1f} s to write)", flush=True)
+
+    # 2. preprocess, with the gmm VAD trim and with --no_trim, as two children
+    # at once; meanwhile the same on the CPU here, and the VAD masks
+    tags = {"trim": [], "no_trim": ["--no_trim"]}
+    for tag, flag in tags.items():
+        kids.start(f"preprocess_{tag}", ["preprocess", vctk, "-o",
+                                         os.path.join(work, f"mels_{tag}"), "-d", "VCTK", *flag])
+    t0 = time.perf_counter()
+    for tag in tags:
+        preprocess_dataset(vctk, os.path.join(work, f"mels_{tag}_cpu"), "VCTK",
+                           trim=tag == "trim", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t_card, n_voiced, n_win = 0.0, 0, 0
+    for path in sorted(seconds):
+        w = torch.from_numpy(preprocess_wav_host(path, acfg, trim=False, device="cpu"))
+        t1 = time.perf_counter()
+        m_card = gmm_vad_mask(w.to(dev))
+        t_card += time.perf_counter() - t1
+        m_cpu = gmm_vad_mask(w)
+        check(torch.equal(m_card, m_cpu), f"gmm VAD mask card != CPU for {path}")
+        n_voiced += int(m_cpu.sum())
+        n_win += m_cpu.numel()
+    print(f"gmm VAD [{card}]: masks on the card equal the CPU's for all {len(seconds)} "
+          f"files ({n_voiced} of {n_win} windows voiced); card {t_card:.2f} s "
+          f"({audio_s / t_card:.1f} s of audio a second: band features on the card, "
+          "the frame recurrence on the host; beside the preprocess children)", flush=True)
+    frames = {}
+    for tag in tags:
+        said, secs = kids.wait(f"preprocess_{tag}")
+        check(f"preprocessed {len(seconds)} files" in said,
+              f"preprocess {tag}: {said.strip()[-300:]}")
+        out, ref = os.path.join(work, f"mels_{tag}"), os.path.join(work, f"mels_{tag}_cpu")
+        err, frames[tag] = 0.0, 0
+        for spk in RECIPE_SPEAKERS:
+            names = sorted(os.listdir(os.path.join(out, spk)))
+            check(names == sorted(os.listdir(os.path.join(ref, spk))) and len(names) == 13,
+                  f"preprocess {tag}: {spk} holds {names}")
+            with open(os.path.join(out, spk, "_sources.txt")) as f:
+                check(len(f.read().splitlines()) == 12, f"{spk}/_sources.txt")
+            for n in names[1:]:
+                a, b = np.load(os.path.join(out, spk, n)), np.load(os.path.join(ref, spk, n))
+                check(a.shape == b.shape and a.shape[0] == 80 and a.dtype == np.float32
+                      and 0.0 <= a.min() and a.max() <= 1.0,
+                      f"preprocess {tag}: {n} {a.shape} {b.shape} [{a.min()}, {a.max()}]")
+                err = max(err, float(np.abs(a - b).max()))
+                frames[tag] += a.shape[1]
+        print(f"preprocess {tag} [{card}]: `preprocess` child process {secs:.1f} s for "
+              f"{audio_s:.1f} s of audio ({audio_s / secs:.1f} s of audio a second, process "
+              f"start included, the other preprocess child beside it), {frames[tag]} mel "
+              f"frames; card mels against the CPU (both CPU runs {cpu_s:.1f} s in this "
+              f"process): max abs err {err:.3e} (limit {MEL_CARD_ATOL})", flush=True)
+        check(err <= MEL_CARD_ATOL, f"preprocess {tag}: card mels against CPU {err}")
+    check(frames["trim"] < frames["no_trim"],
+          f"the VAD trimmed nothing: {frames['trim']} frames of {frames['no_trim']}")
+
+    # 3. train 2 epochs at batch 8 on the --no_trim mels
+    mels, run = os.path.join(work, "mels_no_trim"), os.path.join(work, "run")
+    kids.start("train", ["train", "--dataset_fp", mels, "--log_dir", run, "--epochs", "2",
+                         "--batch-size", "8", "--samples_length", "64",
+                         "--report-interval", "2", "--seed", str(SEED)])
+    said, secs = kids.wait("train")
+    ck = os.path.join(run, "checkpoints")
+    have = sorted(os.listdir(ck))
+    check(have == [f"DisentangledVAE_VCTK_2{s}" for s in (".msgpack", ".opt.pth", ".pth")],
+          f"train wrote {have}")
+    alone = os.path.join(work, "alone")
+    os.makedirs(alone)
+    shutil.copy(os.path.join(ck, "DisentangledVAE_VCTK_2.msgpack"), alone)
+    cfg = Config(train=TrainConfig(batch_size=8, seed=SEED))
+    a, b = (Trainer(cfg, checkpoints_path=d, device=dev) for d in (alone, ck))
+    check(a.load_last() == b.load_last() == 3 and a.step == b.step > 0,
+          f"resume: msgpack step {a.step}, .pth step {b.step}")
+    for (n, pa), pb in zip(a.model.named_parameters(), b.model.parameters()):
+        check(torch.equal(pa, pb), f"msgpack and .pth differ in {n}")
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    check(sa.keys() == sb.keys() and all(torch.equal(sa[k][f], sb[k][f]) for k in sb
+                                         for f in ("step", "exp_avg", "exp_avg_sq")),
+          "msgpack and .opt.pth Adam states differ")
+    losses = [ln.strip() for ln in said.splitlines() if "Epoch" in ln]
+    print(f"train [{card}]: `train` child process {secs:.1f} s, {losses}; "
+          f"{', '.join(have)}; the .msgpack alone resumes to the .pth pair's weights, "
+          f"Adam state and step ({a.step})", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+
+    # 4. convert: two pairs with Griffin-Lim as children at once; meanwhile
+    # one utterance with the WaveNet from a .msgpack in this process
+    common = ["--dataset_fp", mels, "--log_dir", run]
+    pairs_gl = (("p225", "p226"), ("p227", "p228"))
+    for src, trg in pairs_gl:
+        kids.start(f"convert_{src}_{trg}", ["convert", *common, "--src_spk", src,
+                                             "--trg_spk", trg, "--num_utterances", "2"])
+    voc = os.path.join(work, "wavenet.msgpack")
+    wn = seeded(lambda: WaveNet(VocoderConfig()), SEED + 21)
+    with open(voc, "wb") as f:
+        f.write(msgpack.packb({"params": wavenet_tree_from_state_dict(wn.state_dict())}))
+    ws.wavenet_generate.launches.clear()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        check(cli.main(["convert", *common, "--src_spk", "p226", "--trg_spk", "p225",
+                        "--num_utterances", "1", "--vocoder_ckpt", voc,
+                        "--device", "cuda"]) == 0, "WaveNet convert")
+        torch.cuda.synchronize()
+    wn_s = time.perf_counter() - t0
+    launches = dict(ws.wavenet_generate.launches)
+    recs = sum(e.count for e in prof.key_averages() if "wavenet_persistent" in e.key)
+    check(recs == 1 and launches == {"bfloat16": 1},
+          f"WaveNet convert: {recs} wavenet_persistent records, launches {launches}")
+    conv_s = [kids.wait(f"convert_{src}_{trg}")[1] for src, trg in pairs_gl]
+    gen = os.path.join(run, "generation")
+    wavs = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(gen) for f in fs
+                  if f.endswith(".wav"))
+    check(len(wavs) == 5, f"convert wrote {wavs}")
+    for path in wavs:
+        w, sr = read_wav(path)
+        check(sr == 16000 and np.isfinite(w).all() and w.std() > 1e-3, f"{path}")
+    print(f"convert [{card}]: Griffin-Lim `convert` child processes "
+          f"{', '.join(f'{x:.1f}' for x in conv_s)} s for 2 utterances each (at once); "
+          f"WaveNet from a .msgpack in this process {wn_s:.1f} s for 1 utterance: {recs} "
+          f"wavenet_persistent record, launches {launches}", flush=True)
+
+    # 5. eval-mcd: the Griffin-Lim conversions against their sources, and
+    # two sources against themselves (named <utt>_cv.wav); meanwhile the
+    # same pairs analyzed on the CPU here
+    cvt = os.path.join(work, "cvt")
+    os.makedirs(cvt)
+    for path in wavs:
+        if "p226_to_p225" not in path:  # the WaveNet one has random weights
+            shutil.copy(path, cvt)
+    for stem in ("p225_000", "p227_001"):
+        shutil.copy(os.path.join(wav16, stem[:4], f"{stem}.wav"),
+                    os.path.join(cvt, f"{stem}_cv.wav"))
+    kids.start("eval_mcd", ["eval-mcd", "--src_dir", wav16, "--cvt_dir", cvt])
+    pairs = cli._pair_converted_to_source(wav16, cvt)
+    t0 = time.perf_counter()
+    cpu_mcd = evaluate_mcd_wav([read_wav(s)[0] for s, _ in pairs],
+                               [read_wav(c)[0] for _, c in pairs], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    said, secs = kids.wait("eval_mcd")
+    card_mcd = {ln.split()[1]: float(ln.split("mcd: ")[1]) for ln in said.splitlines()
+                if ln.startswith("utterance ")}
+    check(len(card_mcd) == len(pairs) == 6, f"eval-mcd printed {card_mcd} for {pairs}")
+    errs = []
+    for (_, c), m in zip(pairs, cpu_mcd):
+        got = card_mcd[os.path.basename(c)]
+        check(math.isfinite(got), f"MCD of {c} not finite: {got}")
+        if c.endswith("_cv.wav"):
+            check(got == 0.0 and m == 0.0, f"a source against itself gave {got}, CPU {m}")
+        errs.append(abs(got - m))
+    print(f"eval-mcd [{card}]: `eval-mcd` child process {secs:.1f} s; MCD "
+          f"{json.dumps(card_mcd)}; card against the CPU analysis ({cpu_s:.1f} s, beside "
+          f"the child): max abs diff {max(errs):.3e} dB (limit {MCD_CARD_ATOL})", flush=True)
+    check(max(errs) <= MCD_CARD_ATOL, f"MCD card against CPU {max(errs)}")
+
+    # 6. the analysis rate, alone: every 16 kHz source through the thread pool
+    srcs16 = [p for p in sorted(seconds) if "p228" not in p]
+    wav_in = [read_wav(p)[0] for p in srcs16]
+    t0 = time.perf_counter()
+    feats = analyze_wavs(wav_in, device=dev)
+    an_s = time.perf_counter() - t0
+    an_audio = sum(seconds[p] for p in srcs16)
+    check(all(np.isfinite(mc).all() and len(f0) == len(w) // 80 + 1
+              for (f0, mc), w in zip(feats, wav_in)), "analysis not finite")
+    print(f"analysis [{card}]: WORLD analysis (Harvest, D4C on the host; CheapTrick, "
+          f"sp2mc on the card) of {len(wav_in)} wavs, {an_audio:.1f} s of audio, on up to "
+          f"8 threads in {an_s:.2f} s: {an_audio / an_s:.1f} s of audio a second", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -881,9 +1185,13 @@ def main() -> int:
         print(f"phase {n} seconds: {phase_t[-1] - phase_t[-2]:.1f}", flush=True)
 
     # 1. build ---------------------------------------------------------------
+    from dvc_tpu_torch.native import _build as native_build
     t0 = time.perf_counter()
-    secs = _build.build_all()
-    print(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s wall)", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        kernels, engines = pool.submit(_build.build_all), pool.submit(native_build.build_all)
+        secs, native_secs = kernels.result(), engines.result()
+    print(f"build: {json.dumps(secs)}; native engines (g++): {json.dumps(native_secs)} "
+          f"({time.perf_counter() - t0:.1f} s wall)", flush=True)
 
     phase_done(1)
 
@@ -1312,6 +1620,10 @@ def main() -> int:
     serve_phase(card, dev, mel8, run8)
     work.cleanup()
     phase_done(9)
+
+    # 10. the verify recipe through the CLI ------------------------------------
+    recipe_phase(card, dev)
+    phase_done(10)
 
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's

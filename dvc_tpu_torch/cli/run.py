@@ -1,4 +1,4 @@
-"""CLI of the port: train / serve / convert / vocode.
+"""CLI of the port: preprocess / train / convert / eval-mcd / serve / vocode.
 
 Same flags and defaults as dvc_tpu's commands (dvc_tpu/cli/run.py), plus
 ``--device {cuda,cpu}`` (default cuda; cuda without a card is an error).
@@ -6,16 +6,18 @@ The vocoder is Griffin-Lim by default (``--gl_iters``, 32); a bare
 ``--vocoder_ckpt`` selects the WaveNet vocoder (its sampler is the CUDA
 kernel on cuda); ``--vocoder none`` returns mels.  ``--profile_transfer``
 converts or serves with the model-free DSP route.  The iSTFT vocoder, the
-WORLD route and the other commands are not ported yet and exit with a
-message.
+WORLD route, orbax checkpoints, ``eval-mcd --analysis device`` and the
+other commands are not ported yet and exit with a message.
 
-Usage:
+Usage (the verify recipe, then serving):
+  python -m dvc_tpu_torch.cli.run preprocess <datasets_root> -o <mel_dir> -d VCTK [--no_trim]
   python -m dvc_tpu_torch.cli.run train --dataset_fp <mel_dir> --log_dir <run>
+  python -m dvc_tpu_torch.cli.run convert --dataset_fp <mel_dir> --log_dir <run> \\
+      --src_spk A --trg_spk B
+  python -m dvc_tpu_torch.cli.run eval-mcd --src_dir <wavs> --cvt_dir <wavs>
   python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --log_dir <run>
   python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --profile_transfer
-  python -m dvc_tpu_torch.cli.run convert --dataset_fp <mel_dir> --log_dir <run> \\
-      --src_spk A --trg_spk B [--vocoder_ckpt <r9y9 .pth>]
-  python -m dvc_tpu_torch.cli.run vocode <mel.npy> [--vocoder_ckpt <r9y9 .pth>]
+  python -m dvc_tpu_torch.cli.run vocode <mel.npy> [--vocoder_ckpt <r9y9 .pth | .msgpack>]
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
                    help="bfloat16 rounds the training inputs to bf16 and computes "
                         "in float32, as dvc_tpu does; serving is float32")
     p.add_argument("--checkpoint-format", default="msgpack", choices=["msgpack", "orbax"],
-                   help="msgpack: the port writes .pth state dicts; orbax is not "
+                   help="msgpack: dvc_tpu's TrainState .msgpack, with the reference's "
+                        ".pth state dict and an .opt.pth beside it; orbax is not "
                         "ported yet")
     p.add_argument("--features", default="mel", choices=["mel", "mcc"])
     p.add_argument("--num_mcep", type=int, default=36)
@@ -69,7 +72,8 @@ def _add_fs_args(p: argparse.ArgumentParser) -> None:
 
 def _add_vocoder_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--vocoder_ckpt", default="",
-                   help="WaveNet checkpoint (r9y9 .pth); overrides the "
+                   help="WaveNet checkpoint (r9y9 .pth or dvc_tpu's .msgpack); "
+                        "overrides the "
                         "griffinlim default")
     p.add_argument("--vocoder", default="griffinlim",
                    choices=["none", "griffinlim", "istft"])
@@ -136,6 +140,16 @@ def _load_fs_mask(args, cfg):
     print(f"FS-masked swap: {int(fs_mask.sum())}/{len(fs_mask)} dims "
           f"{np.where(fs_mask > 0)[0].tolist()}")
     return fs_mask
+
+
+def cmd_preprocess(args) -> int:
+    from dvc_tpu_torch.data.preprocess import preprocess_dataset
+    stats = preprocess_dataset(args.datasets_root, args.out_dir, args.dataset,
+                               skip_existing=args.skip_existing, trim=not args.no_trim,
+                               device=args.device)
+    print(f"preprocessed {stats.n_files} files ({stats.n_frames} mel frames), "
+          f"skipped {stats.n_skipped}")
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -250,9 +264,85 @@ def cmd_vocode(args) -> int:
     return 0
 
 
+def _pair_converted_to_source(src_dir: str, cvt_dir: str) -> list:
+    """Match converted wavs to their source wavs without renaming (dvc_tpu's
+    rule, dvc_tpu/cli/run.py:525-563).
+
+    Supports both naming conventions:
+      * the converter's output (convert/conversion.py):
+        <cvt_dir>/[<src>_to_<trg>/]convert_<src>_to_<trg>_<utt_id>.wav
+        matched to a source wav whose stem ends with _<utt_id> (or equals it);
+      * the reference's MCD_calculate.py:72 convention: <utt>_cv.wav
+        matched to <src_dir>/<utt>.wav.
+    Returns [(src_fp, cvt_fp), ...] sorted by converted path.
+    """
+    import re
+    from glob import glob
+
+    src_fps = sorted(glob(os.path.join(src_dir, "**", "*.wav"), recursive=True))
+    by_stem = {os.path.splitext(os.path.basename(fp))[0]: fp for fp in src_fps}
+    stems_sorted = sorted(by_stem.items())
+
+    pairs = []
+    for fp in sorted(glob(os.path.join(cvt_dir, "**", "*.wav"), recursive=True)):
+        stem = os.path.splitext(os.path.basename(fp))[0]
+        m = re.match(r"convert_(?P<src>.+)_to_(?P<trg>.+?)_(?P<utt>[^_]+)$", stem)
+        if m:
+            src_spk, utt_id = m.group("src"), m.group("utt")
+            # prefer the exact "<src_spk>_<utt>" stem so a multi-speaker
+            # src_dir can't pair against another speaker's same-numbered
+            # utterance; fall back to suffix/equality matches
+            ranked = ([s for st, s in stems_sorted if st == f"{src_spk}_{utt_id}"]
+                      or [s for st, s in stems_sorted
+                          if st == utt_id or st.endswith("_" + utt_id)])
+            if ranked:
+                pairs.append((ranked[0], fp))
+        else:
+            src_fp = by_stem.get(stem.split("_cv")[0])
+            if src_fp:
+                pairs.append((src_fp, fp))
+    return pairs
+
+
+def cmd_eval_mcd(args) -> int:
+    import numpy as np
+
+    from dvc_tpu_torch.eval.mcd import evaluate_mcd_wav
+    from dvc_tpu_torch.utils.wavio import read_wav
+    pairs = _pair_converted_to_source(args.src_dir, args.cvt_dir)
+    src = [read_wav(s)[0] for s, _ in pairs]
+    cvt = [read_wav(c)[0] for _, c in pairs]
+    mcds = evaluate_mcd_wav(src, cvt, analysis=args.analysis, device=args.device)
+    for (_, fp), m in zip(pairs, mcds):
+        print(f"utterance {os.path.basename(fp)} mcd: {m}")
+    finite = [m for m in mcds if np.isfinite(m)]
+    print("MCD value between two speaker: ", float(np.mean(finite)) if finite else None)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="dvc_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("preprocess")
+    p.add_argument("datasets_root")
+    p.add_argument("-o", "--out_dir", required=True)
+    p.add_argument("-d", "--dataset", default="VCTK")
+    p.add_argument("-s", "--skip_existing", action="store_true")
+    p.add_argument("--no_trim", action="store_true")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser("eval-mcd")
+    p.add_argument("--src_dir", required=True)
+    p.add_argument("--cvt_dir", required=True)
+    p.add_argument("--analysis", choices=["native", "device"], default="native",
+                   help="device (dvc_tpu's corpus-batched device WORLD analysis) is "
+                        "not ported yet")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where CheapTrick and the mel-cepstrum run; Harvest, D4C and "
+                        "DTW run on the host")
+    p.set_defaults(fn=cmd_eval_mcd)
 
     p = sub.add_parser("train")
     _add_model_args(p)
@@ -299,7 +389,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except NotImplementedError as e:  # a path the port has not yet: say so and stop
+        raise SystemExit(str(e)) from e
 
 
 if __name__ == "__main__":

@@ -29,8 +29,19 @@ class AudioConfig:
     hop_size: int = 256
     min_level_db: float = -100.0
     ref_level_db: float = 16.0
+    rescaling: bool = True
+    rescaling_max: float = 0.999
     # lws' default analysis window is sqrt(hann)
     window: str = "sqrt_hann"
+
+    # VAD (preprocessing/encoder/params_data.py:17-24; detector role of
+    # webrtcvad.Vad(mode=3) at encoder/audio.py:97)
+    vad_window_length_ms: int = 30
+    vad_moving_average_width: int = 8
+    vad_max_silence_length: int = 6
+    vad_detector: str = "gmm"  # "gmm" (WebRTC-architecture) | "energy"
+    vad_mode: int = 3          # webrtcvad aggressiveness 0..3
+    audio_norm_target_dbfs: float = -30.0
 
 
 @dataclass(frozen=True)
@@ -93,7 +104,7 @@ class TrainConfig:
     # with float32 parameters back to float32)
     compute_dtype: str = "bfloat16"
     remat: bool = False               # not yet ported
-    checkpoint_format: str = "msgpack"  # the port writes .pth; "orbax" not yet ported
+    checkpoint_format: str = "msgpack"  # .msgpack beside .pth; "orbax" not yet ported
 
 
 @dataclass(frozen=True)

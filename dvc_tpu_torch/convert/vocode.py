@@ -19,17 +19,24 @@ import torch
 from dvc_tpu_torch.config import VocoderConfig
 from dvc_tpu_torch.kernels.wavenet_step import generate
 from dvc_tpu_torch.models.wavenet import WaveNet
-from dvc_tpu_torch.utils.convert import fuse_weight_norm, load_torch_state_dict
+from dvc_tpu_torch.utils import msgpack
+from dvc_tpu_torch.utils.convert import (fuse_weight_norm, load_torch_state_dict,
+                                         wavenet_state_dict_from_jax)
 from dvc_tpu_torch.utils.device import resolve_device
 
 
 def load_vocoder_params(ckpt_path: str) -> dict[str, torch.Tensor]:
-    """Vocoder weights from a torch .pth (the reference's r9y9 checkpoint,
-    weight norm fused).  dvc_tpu's own msgpack format is not read here."""
-    if not ckpt_path.endswith((".pth", ".pt")):
-        raise ValueError(f"{ckpt_path}: only .pth/.pt vocoder checkpoints are "
-                         "read by the port")
-    return fuse_weight_norm(load_torch_state_dict(ckpt_path))
+    """Vocoder weights as the port's state dict, from a torch .pth/.pt (the
+    reference's r9y9 checkpoint, weight norm fused) or, for any other name,
+    dvc_tpu's msgpack ``{"params": ...}`` tree (dvc_tpu/convert/vocode.py:
+    21-34, as its vocoder trainers write it)."""
+    if ckpt_path.endswith((".pth", ".pt")):
+        return fuse_weight_norm(load_torch_state_dict(ckpt_path))
+    with open(ckpt_path, "rb") as f:
+        tree = msgpack.unpackb(f.read())
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{ckpt_path}: not a msgpack vocoder checkpoint (no 'params')")
+    return wavenet_state_dict_from_jax(tree["params"])
 
 
 def make_vocoder(ckpt_path: str | None, cfg: VocoderConfig = VocoderConfig(),

@@ -2,47 +2,112 @@
 
 Reference model/variational_base_vae.py:127-149,199-201: checkpoints are
 ``{run_name}_{epoch}`` files in a flat directory; resume globs the
-directory, parses the epoch out of each name and loads the largest.  The
-model file is the reference's own format, ``DisentangledVAE_VCTK_{epoch}.pth``:
-a plain state dict with the reference names, which ``serve``, ``convert``
-and the reference read as it is.  Beside it, ``{run_name}_{epoch}.opt.pth``
-holds the Adam state and the step, so that a resume restores the optimizer
-as dvc_tpu's full TrainState does (the reference drops it, SURVEY.md §5);
-discovery skips that file, whose stem does not end in an epoch number.
+directory, parses the epoch out of each name and loads the largest.
+
+Two formats are written and read:
+
+  * ``{run_name}_{epoch}.msgpack``: dvc_tpu's format, the whole TrainState
+    (``step``, ``params``, ``batch_stats``, ``opt_state``) as
+    ``flax.serialization.to_bytes`` writes it (dvc_tpu/train/checkpoint.py:
+    37-45), written with the port's own msgpack writer.  dvc_tpu's
+    ``load_last_checkpoint`` restores it, and the port reads dvc_tpu's.
+  * ``{run_name}_{epoch}.pth``: the reference's own format, a plain state
+    dict with the reference names, which the reference reads as it is.
+    Beside it, ``{run_name}_{epoch}.opt.pth`` holds the Adam state and the
+    step (the reference drops them, SURVEY.md §5); discovery skips that
+    file, whose stem does not end in an epoch number.  The pair also keeps
+    what dvc_tpu's tree has no place for (BatchNorm's num_batches_tracked).
+
+A save writes the .msgpack, then the .opt.pth, then the .pth, each whole
+before the next, so every file that discovery can find is complete.
+Discovery takes the newest epoch across both formats, as dvc_tpu does
+across its two; on a tie, the file written last (the .pth of a port run).  dvc_tpu's sharded
+``.orbax`` checkpoints are not ported: one found as the newest raises, as
+does ``fmt="orbax"``.
 """
 
 from __future__ import annotations
 
 import os
 from glob import glob
+from typing import Any
 
+import numpy as np
 import torch
 
-from dvc_tpu_torch.utils.convert import load_torch_state_dict
+from dvc_tpu_torch.utils import msgpack
+from dvc_tpu_torch.utils.convert import (load_torch_state_dict, optax_adam_from_torch,
+                                         torch_adam_from_optax, vae_state_dict_from_jax,
+                                         vae_tree_from_state_dict)
 
 SUFFIX = ".pth"
 OPT_SUFFIX = ".opt.pth"
+MSGPACK_SUFFIX = ".msgpack"
+ORBAX_SUFFIX = ".orbax"
 RUN_NAME = "DisentangledVAE_VCTK"
+NOT_PORTED = "not yet ported — see ROADMAP.md"
+# the order in which save writes the formats: on an epoch tie, the later wins
+_SUFFIXES = (ORBAX_SUFFIX, MSGPACK_SUFFIX, SUFFIX)
 
 
 def _epoch_of(path: str) -> int | None:
     stem = os.path.basename(path)
-    if stem.endswith(SUFFIX):
-        stem = stem[: -len(SUFFIX)]
+    for sfx in _SUFFIXES:
+        if stem.endswith(sfx):
+            stem = stem[: -len(sfx)]
+            break
     epoch_str = stem.rsplit("_", 1)[-1]
     return int(epoch_str) if epoch_str.isdigit() else None
+
+
+def _sorted_tree(tree: Any) -> Any:
+    """Dicts with their keys sorted at every level, the order of a trained
+    dvc_tpu state's dicts (jax's pytree flattening sorts dict keys)."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _vae_params(sd: dict) -> dict:
+    return vae_tree_from_state_dict(sd)[0]
+
+
+def train_state_tree(model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer | None, step: int) -> dict:
+    """The VAE and its Adam as dvc_tpu's TrainState state dict: numpy
+    leaves, int32 scalars for the step and Adam's count, the TrainState's
+    fields in their order and every dict below them sorted, so the bytes
+    are those dvc_tpu's Trainer.save writes for the same trained state."""
+    params, stats = vae_tree_from_state_dict(model.state_dict())
+    if optimizer is None:
+        zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+        opt_state = {"0": {"count": np.array(0, np.int32), "mu": _vae_params(zeros),
+                           "nu": _vae_params(zeros)}, "1": {}}
+    else:
+        opt_state = optax_adam_from_torch(model, optimizer, _vae_params)
+    return {"step": np.array(step, np.int32), "params": _sorted_tree(params),
+            "batch_stats": _sorted_tree(stats), "opt_state": _sorted_tree(opt_state)}
 
 
 def save_checkpoint(checkpoints_path: str, run_name: str, epoch: int,
                     model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None,
-                    step: int = 0) -> str:
-    """Write ``{run_name}_{epoch}.pth`` (the model's state dict, on the CPU)
-    and, with an optimizer, ``{run_name}_{epoch}.opt.pth``; returns the
-    model file's path.  The optimizer file is written first, so a model
-    file that discovery can find always has its optimizer state beside it."""
+                    step: int = 0, fmt: str = "msgpack") -> str:
+    """Write ``{run_name}_{epoch}.msgpack`` (the whole TrainState in
+    dvc_tpu's format), then, with an optimizer, ``.opt.pth``, then ``.pth``
+    (the model's state dict, on the CPU); returns the .pth's path.  The
+    optimizer file comes before the model file, so a .pth that discovery
+    can find always has its optimizer state beside it."""
+    if fmt == "orbax":
+        raise NotImplementedError(f'checkpoint_format="orbax": {NOT_PORTED}')
+    if fmt != "msgpack":
+        raise ValueError(f"unknown checkpoint format {fmt!r}")
     os.makedirs(checkpoints_path, exist_ok=True)
     base = os.path.join(checkpoints_path, f"{run_name}_{epoch}")
+    tmp = f"{base}{MSGPACK_SUFFIX}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack.packb(train_state_tree(model, optimizer, step)))
+    os.replace(tmp, base + MSGPACK_SUFFIX)
     if optimizer is not None:
         torch.save({"optimizer": optimizer.state_dict(), "step": int(step)},
                    base + OPT_SUFFIX)
@@ -53,41 +118,80 @@ def save_checkpoint(checkpoints_path: str, run_name: str, epoch: int,
 
 def latest_checkpoint_step(checkpoints_path: str,
                            run_name: str = RUN_NAME) -> tuple[int, str] | None:
-    """(max_epoch, path) over ``{run_name}_<epoch>.pth``, or None."""
+    """(max_epoch, path) over ``{run_name}_<epoch>`` .pth, .msgpack and
+    .orbax checkpoints, or None; on an epoch tie, the newest file (then
+    the format save writes last)."""
     candidates = []
-    for f in glob(os.path.join(checkpoints_path, f"{run_name}_*{SUFFIX}")):
-        epoch = _epoch_of(f)
-        if epoch is not None:
-            candidates.append((epoch, f))
+    for sfx in _SUFFIXES:
+        for f in glob(os.path.join(checkpoints_path, f"{run_name}_*{sfx}")):
+            epoch = _epoch_of(f)
+            if epoch is not None:
+                candidates.append((epoch, os.stat(f).st_mtime_ns, _SUFFIXES.index(sfx), f))
     if not candidates:
         return None
-    return max(candidates, key=lambda item: item[0])
+    best = max(candidates)
+    return best[0], best[3]
 
 
-def load_last_checkpoint(checkpoints_path: str, model: torch.nn.Module) -> int:
-    """Load the highest-epoch checkpoint into ``model``; returns its epoch.
-    Raises FileNotFoundError when there is none."""
-    found = latest_checkpoint_step(checkpoints_path)
+def _found(checkpoints_path: str, run_name: str) -> tuple[int, str] | None:
+    found = latest_checkpoint_step(checkpoints_path, run_name)
+    if found is not None and found[1].endswith(ORBAX_SUFFIX):
+        raise NotImplementedError(f"{found[1]}: orbax checkpoints are {NOT_PORTED}")
+    return found
+
+
+def read_train_state(path: str) -> dict:
+    """A dvc_tpu TrainState .msgpack as a tree of numpy arrays."""
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read())
+    missing = {"step", "params", "batch_stats", "opt_state"} - set(tree)
+    if missing:
+        raise ValueError(f"{path}: not a TrainState checkpoint (no {sorted(missing)})")
+    return tree
+
+
+def _load_model_file(path: str, model: torch.nn.Module) -> dict | None:
+    """Load a .pth or .msgpack into ``model``; returns the TrainState tree
+    of a .msgpack (None for a .pth)."""
+    if path.endswith(MSGPACK_SUFFIX):
+        tree = read_train_state(path)
+        model.load_state_dict(vae_state_dict_from_jax(tree["params"], tree["batch_stats"]))
+        return tree
+    model.load_state_dict(load_torch_state_dict(path))
+    return None
+
+
+def load_last_checkpoint(checkpoints_path: str, model: torch.nn.Module,
+                         run_name: str = RUN_NAME) -> int:
+    """Load the highest-epoch checkpoint, of either format, into ``model``;
+    returns its epoch.  Raises FileNotFoundError when there is none."""
+    found = _found(checkpoints_path, run_name)
     if found is None:
         raise FileNotFoundError(
-            f"no {RUN_NAME}_<epoch>{SUFFIX} checkpoint under {checkpoints_path}")
+            f"no {run_name}_<epoch>{SUFFIX} or {MSGPACK_SUFFIX} checkpoint under "
+            f"{checkpoints_path}")
     epoch, path = found
-    model.load_state_dict(load_torch_state_dict(path))
+    _load_model_file(path, model)
     return epoch
 
 
 def load_train_state(checkpoints_path: str, model: torch.nn.Module,
                      optimizer: torch.optim.Optimizer,
                      run_name: str = RUN_NAME) -> tuple[int, int] | None:
-    """Resume: load the newest ``{run_name}_<epoch>.pth`` into ``model`` and
-    its ``.opt.pth`` into ``optimizer``; returns (epoch, step), or None when
-    there is no checkpoint.  A model file without an optimizer file (a
-    reference checkpoint) restarts Adam at step 0."""
-    found = latest_checkpoint_step(checkpoints_path, run_name)
+    """Resume: load the newest checkpoint into ``model`` and its Adam state
+    into ``optimizer`` (from the .opt.pth beside a .pth, or from a
+    .msgpack's optax state); returns (epoch, step), or None when there is
+    no checkpoint.  A .pth without an optimizer file (a reference
+    checkpoint) restarts Adam at step 0."""
+    found = _found(checkpoints_path, run_name)
     if found is None:
         return None
     epoch, path = found
-    model.load_state_dict(load_torch_state_dict(path))
+    tree = _load_model_file(path, model)
+    if tree is not None:
+        torch_adam_from_optax(model, optimizer, tree["opt_state"],
+                              lambda t: vae_state_dict_from_jax(t, None))
+        return epoch, int(np.asarray(tree["step"]))
     opt_path = path[: -len(SUFFIX)] + OPT_SUFFIX
     if not os.path.exists(opt_path):
         return epoch, 0

@@ -164,7 +164,8 @@ class Trainer:
 
     def save(self, epoch: int) -> str:
         return ckpt_lib.save_checkpoint(self.checkpoints_path, self.run_name, epoch,
-                                        self.model, self.optimizer, self.step)
+                                        self.model, self.optimizer, self.step,
+                                        fmt=self.cfg.train.checkpoint_format)
 
     # -- steps ----------------------------------------------------------------
 

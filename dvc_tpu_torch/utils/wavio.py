@@ -1,8 +1,10 @@
-"""Dependency-free wav IO: a copy of dvc_tpu/utils/wavio.py's read_wav and
-write_wav (PCM 8/16/24/32 and float32 RIFF via numpy + struct)."""
+"""Dependency-free audio IO: a copy of dvc_tpu/utils/wavio.py's read_wav,
+read_audio and write_wav (PCM 8/16/24/32 and float32 RIFF via numpy +
+struct; FLAC through the port's native decoder; m4a/AAC through ffmpeg)."""
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -53,6 +55,53 @@ def parse_wav(data: bytes, name: str = "<bytes>") -> tuple[np.ndarray, int]:
     if channels > 1:
         wav = wav.reshape(-1, channels).mean(axis=1)
     return wav, sample_rate
+
+
+def read_audio(path: str) -> tuple[np.ndarray, int]:
+    """Extension-dispatched read: .flac via the native decoder
+    (native/flac.py), .m4a/.aac/.mp4 via an external ffmpeg on PATH (the
+    reference's situation: librosa falls back to audioread, which shells to
+    ffmpeg, for VoxCeleb2 — encoder/preprocess.py:266-276), anything else
+    via read_wav."""
+    lower = path.lower()
+    if lower.endswith(".flac"):
+        from dvc_tpu_torch.native.flac import read_flac
+        return read_flac(path)
+    if lower.endswith((".m4a", ".aac", ".mp4")):
+        return _external_decode(path)
+    return read_wav(path)
+
+
+def _external_decode(path: str) -> tuple[np.ndarray, int]:
+    """Decode a compressed container through ffmpeg into a temporary PCM16
+    wav (a file, not stdout: streamed RIFF headers carry sizes the strict
+    parser rejects)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    exe = shutil.which("ffmpeg")
+    if exe is None:
+        raise NotImplementedError(
+            f"{path}: m4a/AAC decode needs ffmpeg on PATH (the reference's "
+            "audioread backend for VoxCeleb2 shells out to it too); install "
+            "ffmpeg or convert the audio to wav/flac first")
+    with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as tmp:
+        tmp_path = tmp.name
+    try:
+        proc = subprocess.run(
+            [exe, "-y", "-v", "error", "-i", path,
+             "-f", "wav", "-acodec", "pcm_s16le", tmp_path],
+            capture_output=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"ffmpeg failed on {path}: {proc.stderr.decode(errors='replace')[:500]}")
+        return read_wav(tmp_path)
+    finally:
+        try:
+            os.unlink(tmp_path)
+        except OSError:
+            pass
 
 
 def wav_bytes(wav: np.ndarray, sample_rate: int = 16_000) -> bytes:

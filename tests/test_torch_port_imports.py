@@ -1,6 +1,8 @@
 """The port (dvc_tpu_torch) and chip_smoke.py import neither jax/flax nor
 anything of dvc_tpu: checked at run time in a fresh interpreter and at the
-source level over every file."""
+source level over every file.  The port's native engines are its own
+builds: a process that loads all three maps no shared object of
+dvc_tpu/native."""
 
 import ast
 import os
@@ -25,7 +27,13 @@ MODULES = [
     "dvc_tpu_torch.serve", "dvc_tpu_torch.cli.run", "dvc_tpu_torch.tools._common",
     "dvc_tpu_torch.tools.bench_taps", "dvc_tpu_torch.tools.bench_body",
     "dvc_tpu_torch.tools.bench_body2", "dvc_tpu_torch.tools.ablate_body",
+    "dvc_tpu_torch.utils.msgpack", "dvc_tpu_torch.native", "dvc_tpu_torch.native._build",
+    "dvc_tpu_torch.native.flac", "dvc_tpu_torch.native.world",
+    "dvc_tpu_torch.data.preprocess", "dvc_tpu_torch.ops.world", "dvc_tpu_torch.eval",
+    "dvc_tpu_torch.eval.mcd",
 ]
+
+FORBIDDEN_SO = os.sep + os.path.join("dvc_tpu", "native") + os.sep
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dvc_tpu")
 
@@ -42,6 +50,7 @@ def test_every_module_is_listed():
         "dvc_tpu_torch.utils", "dvc_tpu_torch.ops", "dvc_tpu_torch.models",
         "dvc_tpu_torch.kernels", "dvc_tpu_torch.convert", "dvc_tpu_torch.train",
         "dvc_tpu_torch.cli", "dvc_tpu_torch.tools", "dvc_tpu_torch.data"}
+    assert set(MODULES) <= on_disk | {"dvc_tpu_torch"}
 
 
 def test_import_pulls_in_no_jax_subprocess():
@@ -75,3 +84,27 @@ def test_static_scan_of_sources():
     bad = {str(p.relative_to(REPO)): [n for n in _imports_of(p) if _forbidden(n)]
            for p in files}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_native_engines_are_the_ports_own():
+    """Load the DSP, FLAC and WORLD engines through the port and read the
+    process's memory map: each library comes from build/native/, built from
+    dvc_tpu_torch/native, and no file under dvc_tpu/native is mapped."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from dvc_tpu_torch import native\n"
+        "from dvc_tpu_torch.native import _build, flac, world\n"
+        "native.dtw_path(np.zeros((2, 2)))\n"
+        "world.harvest(np.zeros(1600, np.float32), 16000)\n"
+        "_build.load('dvc_flac', flac._declare)\n"
+        "maps = [ln.split()[-1] for ln in open('/proc/self/maps') if '.so' in ln]\n"
+        f"bad = [m for m in maps if {FORBIDDEN_SO!r} in m]\n"
+        "ours = sorted({m for m in maps if 'libdvc_' in m})\n"
+        "print('BAD', bad, 'OURS', ours)\n"
+        "ok = not bad and len(ours) == 3 and all(str(_build.BUILD_DIR) in m for m in ours)\n"
+        "sys.exit(0 if ok else 1)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -364,7 +364,8 @@ def tiny_config(**train_kw) -> Config:
 
 
 def test_checkpoint_save_and_resume(tmp_path):
-    """save writes the model .pth and the optimizer file beside it; resume
+    """save writes dvc_tpu's .msgpack, then the optimizer file and the model
+    .pth beside it; resume
     restores the weights, the BN statistics, the step and Adam's state, so
     that 2 epochs + resume + 1 epoch end where 3 straight epochs do; the
     .pth loads into the serving DisentangledVAE as it is."""
@@ -381,7 +382,7 @@ def test_checkpoint_save_and_resume(tmp_path):
     first = Trainer(tiny_config(), checkpoints_path=ck, device="cpu")
     first.run_training(ds, 2, **quiet)
     assert sorted(os.listdir(ck)) == [f"DisentangledVAE_VCTK_{e}{s}" for e in (1, 2)
-                                      for s in (".opt.pth", ".pth")]
+                                      for s in (".msgpack", ".opt.pth", ".pth")]
 
     resumed = Trainer(tiny_config(), checkpoints_path=ck, device="cpu")
     assert resumed.load_last() == 3 and resumed.step == first.step > 0
