@@ -103,15 +103,45 @@ Phases; any failure exits non-zero before a result line is printed:
             -> `eval-mcd` (finite MCDs, sources against themselves 0.0,
             each MCD within 1e-3 dB of the port's CPU analysis); seconds of
             each step, the preprocess and analysis rates.
+ 11. vocoder the vocoders trained and served, at full width: (i)
+            `train-vocoder` (the WaveNet at the CLI defaults, and --arch
+            istft) as two child processes at once, 300 steps each on phase
+            10's corpus (p228 at 48 kHz, so the resampler runs): a
+            checkpoint each, finite logged losses, and each checkpoint's
+            mean loss over 4 held batches below its initial weights'; (ii)
+            meanwhile one
+            step of each on the card against the same step on the CPU (the
+            WaveNet at dropout 0 on 2 x 1024 samples, the iSTFT vocoder on
+            train-vocoder's 2 x 31 frames): loss terms 1e-5 relative, each
+            gradient 1e-3 of its max (the iSTFT gradient, ill-conditioned in
+            float32: 1e-2 in float32, and the same step in float64 on both,
+            1e-6), the card's first Adam / clip + AdamW
+            update against its formula within 1e-3 of the learning rate and
+            the EMA within 1e-6; (iii) `serve --vocoder istft` on phase 8's
+            checkpoint answers 3 concurrent 0.5 s requests in one drain; the
+            iSTFT synthesis of those requests' mels (the same VAE served
+            here without a vocoder) on the card against the CPU within 1e-4
+            of the peak, timed, and its real-time factor; (iv) `convert`
+            with the trained WaveNet's msgpack (exactly one
+            wavenet_persistent launch, by the profiler and by the counter),
+            then the kernel on its EMA weights: bf16 at the main path's
+            shape with the feedback cut against the open-loop plain version
+            at max 4e-3 / rms 3e-4 (inside phase 6 (v)'s limits, which it
+            also reports), after float32 with the feedback on at
+            B = 3, T = 1024 against the plain version (atol 5e-5), each with
+            a layer-0 ring tap at twice its dilation reported caught or not;
+            (v) ms a train step and peak memory of each arch at
+            train-vocoder's shapes.
 Each phase prints its seconds.  The lines before the last report the card
 (nvidia-smi name and power limit), timings and one JSON line of kernels
-(phases 8-10 add none); the last line is
+(phases 8-11 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import copy
+import io
 import json
 import math
 import os
@@ -775,6 +805,23 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def request_body(sr, seed) -> bytes:
+    """A 0.5 s request wav at sr Hz: a tone of 170 + 20 seed Hz over noise."""
+    from dvc_tpu_torch.utils.wavio import wav_bytes
+    tt = np.arange(sr // 2) / sr
+    rng = np.random.RandomState(seed)
+    return wav_bytes((0.3 * np.sin(2 * np.pi * (170 + 20 * seed) * tt)
+                      + 0.01 * rng.randn(len(tt))).astype(np.float32), sr)
+
+
+def post_convert(url, data):
+    """POST /convert?trg_spk=spkB: (status, body, seconds)."""
+    req = urllib.request.Request(f"{url}/convert?trg_spk=spkB", data=data, method="POST")
+    t_req = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read(), time.perf_counter() - t_req
+
+
 def serve_phase(card, dev, mel_dir, log_dir):
     """Phase 9: the serving defaults.  `serve` with the default Griffin-Lim
     vocoder on phase 8's checkpoint answers concurrent POST /convert, one
@@ -783,20 +830,9 @@ def serve_phase(card, dev, mel_dir, log_dir):
     from dvc_tpu_torch.config import AudioConfig
     from dvc_tpu_torch.convert import griffinlim as gl
     from dvc_tpu_torch.ops.audio import resample_poly
-    from dvc_tpu_torch.utils.wavio import parse_wav, wav_bytes
+    from dvc_tpu_torch.utils.wavio import parse_wav
     acfg = AudioConfig()
-
-    def body(sr, seed):
-        tt = np.arange(sr // 2) / sr
-        rng = np.random.RandomState(seed)
-        return wav_bytes((0.3 * np.sin(2 * np.pi * (170 + 20 * seed) * tt)
-                          + 0.01 * rng.randn(len(tt))).astype(np.float32), sr)
-
-    def post(url, data):
-        req = urllib.request.Request(f"{url}/convert?trg_spk=spkB", data=data, method="POST")
-        t_req = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=600) as r:
-            return r.status, r.read(), time.perf_counter() - t_req
+    body, post = request_body, post_convert
 
     # 0.5 s at 16 kHz -> 33 mel frames -> one 64-frame chunk -> Griffin-Lim
     want_len = gl.default_inversion_length(BENCH_FRAMES, acfg)
@@ -928,42 +964,48 @@ class Children:
             proc = subprocess.Popen([sys.executable, "-m", "dvc_tpu_torch.cli.run", *args,
                                      "--device", "cuda"], cwd=self.root, env=self.env,
                                     stdout=log, stderr=subprocess.STDOUT)
-        self.jobs[name] = (proc, log_path, time.perf_counter())
+        t0, ended = time.perf_counter(), []
+        watcher = threading.Thread(target=lambda: ended.append((proc.wait(),
+                                                                time.perf_counter())),
+                                   daemon=True)
+        watcher.start()
+        self.jobs[name] = (proc, log_path, t0, watcher, ended)
 
     def wait(self, name):
         """(output, seconds from start to exit); fails with the output's
-        tail unless the child exited 0."""
-        proc, log_path, t0 = self.jobs.pop(name)
-        try:
-            rc = proc.wait(900)
-        except subprocess.TimeoutExpired:
+        tail unless the child exited 0.  The exit is timed by a thread
+        waiting on the child, so a child that ended before this call is
+        not timed to it."""
+        proc, log_path, t0, watcher, ended = self.jobs.pop(name)
+        watcher.join(900)
+        if watcher.is_alive():
             proc.kill()
-            rc = proc.wait(30)
-        secs = time.perf_counter() - t0
+            watcher.join(30)
+        rc, secs = (ended[0][0], ended[0][1] - t0) if ended else (None, float("nan"))
         with open(log_path) as log:
             out = log.read()
         check(rc == 0, f"`{name}` exited {rc}: {out[-3000:]}")
         return out, secs
 
     def kill_all(self):
-        for proc, _, _ in self.jobs.values():
+        for proc, _, _, watcher, _ in self.jobs.values():
             if proc.poll() is None:
                 proc.kill()
-                proc.wait(30)
+            watcher.join(30)
         self.jobs.clear()
 
 
-def recipe_phase(card, dev):
+def recipe_phase(card, dev, work):
     """Phase 10: the verify recipe (preprocess -> train -> convert ->
     eval-mcd) through the CLI on the card at full width, held against the
-    port's CPU runs.  Independent children run at once, beside the
-    in-process CPU references."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as work:
-        kids = Children(work)
-        try:
-            recipe_steps(card, dev, work, kids)
-        finally:
-            kids.kill_all()
+    port's CPU runs, in the directory work (phase 11 reuses its corpus and
+    run).  Independent children run at once, beside the in-process CPU
+    references."""
+    kids = Children(work)
+    try:
+        recipe_steps(card, dev, work, kids)
+    finally:
+        kids.kill_all()
 
 
 def recipe_steps(card, dev, work, kids):
@@ -1155,6 +1197,438 @@ def recipe_steps(card, dev, work, kids):
     print(f"analysis [{card}]: WORLD analysis (Harvest, D4C on the host; CheapTrick, "
           f"sp2mc on the card) of {len(wav_in)} wavs, {an_audio:.1f} s of audio, on up to "
           f"8 threads in {an_s:.2f} s: {an_audio / an_s:.1f} s of audio a second", flush=True)
+
+
+VOC_STEPS = 300         # phase 11: train-vocoder steps of each child ("a few hundred")
+VOC_HELD_BATCHES = 4    # phase 11 (i): batches the checkpoints are held on against init
+VOC_CHECK_CROP = 1024   # phase 11 (ii): the WaveNet step held card against CPU, 4 frames
+ISTFT_CROP = 31         # train-vocoder --arch istft's crop at the default 8000 samples
+UPDATE_RTOL = 1e-3      # phase 11 (ii): each parameter's first Adam/AdamW update on the
+                        # card against its formula on the card's own gradient, of lr
+EMA_RTOL = 1e-6         # the EMA trail against d e + (1 - d) p, of the parameter's max
+ISTFT_F32_GRAD_RTOL = 1e-2  # the iSTFT step's float32 gradients card against CPU, of each
+                        # one's max: ~7x the 1.44e-3 read, where the same step in
+                        # float64 agrees to 4.5e-12 (PERF.md section 6)
+F64_GRAD_RTOL = 1e-6    # the same step in float64 on both, where the conditioning that
+                        # float32 hits sits far below this
+ISTFT_PEAK_RTOL = 1e-4  # phase 11 (iii): iSTFT synthesis card against CPU, of the peak
+TRAINED_NOFB_ATOL = 4e-3  # phase 11 (iv): the bf16 kernel on the trained EMA weights,
+TRAINED_NOFB_RMS = 3e-4   # feedback cut, against the open-loop plain version: 2.5-4x
+                          # the largest max (1.0e-3) and rms (1.2e-4) errors read over
+                          # four trainings, whose weights differ (cuDNN's training is
+                          # not deterministic) and whose rms read 1.0e-5 to 1.2e-4
+                          # (PERF.md); phase 6 (v)'s limits, far looser here, are
+                          # printed beside them
+WAVENET_MACS = 24.65e6  # multiply-adds a sample of the full WaveNet's forward (PERF.md)
+
+
+def layer0_wrong_tap(packed):
+    """A pack whose layer 0 reads its ring taps at twice its dilation
+    (x_{t-4}, x_{t-2} for x_{t-2}, x_{t-1}), with the ring laid out to match."""
+    dil = packed["dil"].copy()
+    dil[0] *= 2
+    offs = np.concatenate([[0], np.cumsum(2 * dil)[:-1]]).astype(np.int32)
+    return dict(packed, dil=dil, offs=offs, slots=int((2 * dil).sum()))
+
+
+def grads_rel_err(a, b) -> float:
+    """Worst max |diff| over max |g| between two models' gradients; a
+    parameter whose gradient is 0 (the last layer's residual output feeds
+    nothing) must be 0 on both."""
+    worst = 0.0
+    for (n, pa), pb in zip(a.named_parameters(), b.parameters()):
+        ga = None if pa.grad is None else pa.grad.cpu()
+        gb = None if pb.grad is None else pb.grad.cpu()
+        if ga is None or not ga.any():
+            check(gb is None or not gb.any(), f"{n}: gradient 0 on one side only")
+            continue
+        worst = max(worst, (ga - gb).abs().max().item() / ga.abs().max().item())
+    return worst
+
+
+def vocoder_steps_against_cpu(card, dev, wav_dir):
+    """Phase 11 (ii): one train step of each vocoder at full width on the
+    card and on the CPU from the same weights and batch (TF32 off); each
+    card update against its formula."""
+    from dvc_tpu_torch.config import AudioConfig, ISTFTVocoderConfig, VocoderConfig
+    from dvc_tpu_torch.models.istft_vocoder import ISTFTVocoder
+    from dvc_tpu_torch.train import istft_vocoder_trainer as ivt
+    from dvc_tpu_torch.train import vocoder_trainer as vt
+    from dvc_tpu_torch.train.trainer import make_optimizer
+
+    # the WaveNet at dropout 0 (the card's and the CPU's generators differ),
+    # on a crop of 4 frames the CPU steps in seconds
+    t0 = time.perf_counter()
+    cfg = VocoderConfig(dropout=0.0)
+    x, c = next(vt.wav_batches(wav_dir, 2, VOC_CHECK_CROP, cfg, seed=SEED))
+    cpu = vt.create_wavenet(cfg, SEED + 30, "cpu").train()
+    runs = {}
+    for name, model in (("cpu", cpu), ("card", copy.deepcopy(cpu).to(dev))):
+        d = next(model.parameters()).device
+        ema = {n: p.detach().clone() for n, p in model.named_parameters()}
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = vt.make_wavenet_step(model, make_optimizer(model, 1e-3), ema, cfg)
+        loss = step(torch.from_numpy(x).to(d), torch.from_numpy(c).to(d), 0).item()
+        runs[name] = (loss, model, ema, p0)
+    (l_c, m_c, _, _), (l_g, m_g, ema, p0) = runs["cpu"], runs["card"]
+    loss_err = abs(l_g - l_c) / abs(l_c)
+    grad_err = grads_rel_err(m_c, m_g)
+    lr, dec = 1e-3, vt.ema_decay_at(0)
+    upd_err = ema_err = 0.0
+    for n, p in m_g.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        p = p.detach()
+        want = p0[n] - lr * g / (g.abs() + 1e-8)  # Adam's first step
+        upd_err = max(upd_err, (p - want).abs().max().item() / lr)
+        ema_err = max(ema_err, (ema[n] - (dec * p0[n] + (1 - dec) * p)).abs().max().item()
+                      / max(p.abs().max().item(), 1e-12))
+    print(f"vocoder step card vs CPU [{card}] WaveNet full width, float32, batch 2 x "
+          f"{VOC_CHECK_CROP} samples, dropout 0, TF32 off ({time.perf_counter() - t0:.1f} s): "
+          f"NLL {l_c:.4f}, rel err {loss_err:.3e} (limit {TERM_RTOL}); gradients rel err "
+          f"{grad_err:.3e} (limit {GRAD_RTOL}); Adam's first update against its formula "
+          f"{upd_err:.3e} of lr (limit {UPDATE_RTOL}); EMA (d = {dec:.4f}) against "
+          f"d e + (1 - d) p {ema_err:.3e} (limit {EMA_RTOL})", flush=True)
+    check(loss_err <= TERM_RTOL, f"WaveNet step NLL card vs CPU {loss_err}")
+    check(grad_err <= GRAD_RTOL, f"WaveNet step gradients card vs CPU {grad_err}")
+    check(upd_err <= UPDATE_RTOL, f"WaveNet Adam update against its formula {upd_err}")
+    check(ema_err <= EMA_RTOL, f"WaveNet EMA against its formula {ema_err}")
+
+    # the iSTFT vocoder at its default config, on train-vocoder's crop.  Its
+    # gradient is ill-conditioned in float32: the model's input is
+    # log(prior + 1e-5), and where the pinv product that makes the prior
+    # cancels to near 0, its rounding (~1e-7) moves that input by up to 1%.
+    # So the card's code is held tightly on the same step in float64, and
+    # its float32 gradient to ISTFT_F32_GRAD_RTOL
+    t0 = time.perf_counter()
+    mel, wav = next(ivt.mel_wav_batches(wav_dir, 2, ISTFT_CROP, seed=SEED))
+    base = seeded(lambda: ISTFTVocoder(ISTFTVocoderConfig(), AudioConfig()), SEED + 31).train()
+    runs = {}
+    for name, d, dt in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
+                        ("cpu64", "cpu", torch.float64), ("card64", dev, torch.float64)):
+        model = copy.deepcopy(base).to(d, dt)
+        opt = ivt.ClipAdamW(model.parameters(), lr=2e-4)
+        p0 = [p.detach().clone() for p in model.parameters()]
+        terms = ivt.make_istft_step(model, opt)(torch.from_numpy(mel).to(d, dt),
+                                                torch.from_numpy(wav).to(d, dt))
+        runs[name] = ([t.item() for t in terms], model, opt, p0)
+    (t_c, m_c, _, _), (t_g, m_g, opt, p0) = runs["cpu"], runs["card"]
+    term_err = max(abs(a - b) / abs(a) for a, b in zip(t_c, t_g))
+    grad_err = grads_rel_err(m_c, m_g)
+    f64_err = grads_rel_err(runs["cpu64"][1], runs["card64"][1])
+    grads = [p.grad for p in m_g.parameters()]
+    norm = math.sqrt(sum((g.double() ** 2).sum().item() for g in grads))
+    upd_err = 0.0
+    for p, g, q0 in zip(m_g.parameters(), grads, p0):
+        gc = g / max(norm, 1.0)  # clip_by_global_norm(1.0)
+        m, v = 0.1 * gc, 0.001 * gc * gc
+        want = q0 - 2e-4 * ((m / 0.1) / (torch.sqrt(v / 0.001) + 1e-8) + 1e-5 * q0)
+        upd_err = max(upd_err, (p.detach() - want).abs().max().item() / 2e-4)
+    print(f"vocoder step card vs CPU [{card}] iSTFT default config, batch 2 x {ISTFT_CROP} "
+          f"frames, TF32 off ({time.perf_counter() - t0:.1f} s): loss {t_c[0]:.4f} (mrstft "
+          f"{t_c[1]:.4f}, l1 {t_c[2]:.4f}), terms rel err {term_err:.3e} (limit {TERM_RTOL}); "
+          f"gradients rel err {grad_err:.3e} (limit {ISTFT_F32_GRAD_RTOL}); the same step in "
+          f"float64, gradients "
+          f"rel err {f64_err:.3e} (limit {F64_GRAD_RTOL}); global norm {norm:.3f}; "
+          f"clip + AdamW's first update against its formula {upd_err:.3e} of lr (limit "
+          f"{UPDATE_RTOL})", flush=True)
+    check(term_err <= TERM_RTOL, f"iSTFT step loss terms card vs CPU {term_err}")
+    check(grad_err <= ISTFT_F32_GRAD_RTOL, f"iSTFT step gradients card vs CPU {grad_err}")
+    check(f64_err <= F64_GRAD_RTOL, f"iSTFT float64 step gradients card vs CPU {f64_err}")
+    check(upd_err <= UPDATE_RTOL, f"iSTFT clip + AdamW against its formula {upd_err}")
+
+
+def held_out_losses(dev, wav_dir, paths) -> dict[str, tuple[float, float]]:
+    """Phase 11 (i): each vocoder's loss, the mean over VOC_HELD_BATCHES
+    fixed batches at train-vocoder's shapes (drawn from another seed than
+    training's), for the weights its trainer starts from (seed 0) and for
+    the checkpoint it wrote; without dropout.  arch -> (initial, trained)."""
+    from dvc_tpu_torch.config import AudioConfig, ISTFTVocoderConfig, VocoderConfig
+    from dvc_tpu_torch.convert.griffinlim import istft
+    from dvc_tpu_torch.convert.vocode import load_istft_params, load_vocoder_params
+    from dvc_tpu_torch.models.istft_vocoder import ISTFTVocoder
+    from dvc_tpu_torch.models.wavenet import WaveNet, discretized_mix_logistic_loss
+    from dvc_tpu_torch.train import istft_vocoder_trainer as ivt
+    from dvc_tpu_torch.train import vocoder_trainer as vt
+
+    vcfg, acfg = VocoderConfig(), AudioConfig()
+    trained_wn = WaveNet(vcfg)
+    trained_wn.load_state_dict(load_vocoder_params(paths["wavenet"]))
+    trained_is = ISTFTVocoder(ISTFTVocoderConfig(), acfg)
+    trained_is.load_state_dict(load_istft_params(paths["istft"]))
+
+    def wavenet_nll(model, x, c):
+        y_hat = model(x, c)
+        return discretized_mix_logistic_loss(y_hat[:, :-1], x[:, 1:],
+                                             log_scale_min=vcfg.log_scale_min)
+
+    def istft_loss(model, mel, wav):
+        pred = istft(model(mel), wav.shape[-1], acfg)
+        return ivt.multi_resolution_stft_loss(pred, wav) + 0.1 * (pred - wav).abs().mean()
+
+    out = {}
+    for arch, init, trained, batches, loss in (
+            ("wavenet", vt.create_wavenet(vcfg, 0, "cpu"), trained_wn,
+             vt.wav_batches(wav_dir, 2, 8000, vcfg, seed=SEED + 40), wavenet_nll),
+            ("istft", seeded(lambda: ISTFTVocoder(ISTFTVocoderConfig(), acfg), 0), trained_is,
+             ivt.mel_wav_batches(wav_dir, 2, ISTFT_CROP, seed=SEED + 40), istft_loss)):
+        held = [tuple(torch.from_numpy(a).to(dev) for a in next(batches))
+                for _ in range(VOC_HELD_BATCHES)]
+        means = []
+        for model in (init, trained):
+            model = model.to(dev).eval()
+            with torch.no_grad():
+                means.append(sum(loss(model, *b).item() for b in held) / len(held))
+            model.cpu()
+        out[arch] = tuple(means)
+    return out
+
+
+def logged_losses(out: str, tag: str) -> list[float]:
+    """The losses a train-vocoder child printed: "<tag> <step>: <name> <x>"."""
+    return [float(ln.split(": ")[1].split()[1]) for ln in out.splitlines()
+            if ln.startswith(tag)]
+
+
+def vocoder_phase(card, dev, recipe, mel8, run8, b_main, f_main):
+    """Phase 11: the vocoders trained and served.  (i) `train-vocoder` for
+    the WaveNet at the CLI defaults and with --arch istft, as children at
+    once on phase 10's corpus; (ii) meanwhile one step of each on the card
+    against the CPU; (iii) `serve --vocoder istft` on phase 8's checkpoint;
+    (iv) `convert` with the trained WaveNet, and the sampler kernel on its
+    EMA weights against the plain versions; (v) timings."""
+    kids = Children(recipe)
+    try:
+        vocoder_steps(card, dev, recipe, mel8, run8, b_main, f_main, kids)
+    finally:
+        kids.kill_all()
+
+
+def vocoder_steps(card, dev, recipe, mel8, run8, b_main, f_main, kids):
+    from dvc_tpu_torch.cli import run as cli
+    from dvc_tpu_torch.config import Config, VocoderConfig
+    from dvc_tpu_torch.convert.vocode import load_vocoder_params, make_istft_vocoder
+    from dvc_tpu_torch.kernels import wavenet_step as ws
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.models.wavenet import WaveNet
+    from dvc_tpu_torch.serve import ConversionService, make_http_server
+    from dvc_tpu_torch.train import istft_vocoder_trainer as ivt
+    from dvc_tpu_torch.train import vocoder_trainer as vt
+    from dvc_tpu_torch.train.checkpoint import load_last_checkpoint
+    from dvc_tpu_torch.utils.wavio import parse_wav, read_wav
+    wav16 = os.path.join(recipe, "vctk", "VCTK-Corpus", "wav16")
+    models = os.path.join(recipe, "vocoders")
+
+    # (i) both trainers as children at once; (ii) meanwhile, here
+    kids.start("train_vocoder_wavenet", ["train-vocoder", wav16, "-m", models,
+                                         "--n_steps", str(VOC_STEPS)])
+    kids.start("train_vocoder_istft", ["train-vocoder", wav16, "-m", models, "--arch",
+                                       "istft", "--n_steps", str(VOC_STEPS)])
+    vocoder_steps_against_cpu(card, dev, wav16)
+    paths = {}
+    for arch, tag, name in (("wavenet", "vocoder step", "wavenet_step"),
+                            ("istft", "istft-voc step", "istft_voc_step")):
+        said, secs = kids.wait(f"train_vocoder_{arch}")
+        paths[arch] = os.path.join(models, f"{name}{VOC_STEPS:09d}.msgpack")
+        losses = logged_losses(said, tag)
+        check(os.path.exists(paths[arch]), f"train-vocoder {arch} wrote no {paths[arch]}")
+        check(len(losses) >= 2 and all(math.isfinite(v) for v in losses),
+              f"train-vocoder {arch} losses {losses}")
+        print(f"train-vocoder {arch} [{card}]: child process {secs:.1f} s for {VOC_STEPS} "
+              f"steps (start to exit: corpus load and resampling included, the other child "
+              f"beside it); logged losses {[round(v, 4) for v in losses]}; wrote "
+              f"{os.path.basename(paths[arch])}", flush=True)
+    for arch, (first, last) in held_out_losses(dev, wav16, paths).items():
+        print(f"train-vocoder {arch} [{card}]: loss over {VOC_HELD_BATCHES} held batches, "
+              f"mean: the initial weights {first:.4f}, the checkpoint {last:.4f}", flush=True)
+        check(math.isfinite(last) and last < first,
+              f"train-vocoder {arch}: the checkpoint's held loss {last} is not below the "
+              f"initial weights' {first}")
+
+    # (iii) serve --vocoder istft on phase 8's checkpoint: 3 concurrent requests
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = start_serve(["--dataset_fp", mel8, "--log_dir", run8, "--vocoder", "istft",
+                        "--vocoder_ckpt", paths["istft"], "--max_wait_ms", "500"], port,
+                       dev.type, os.path.join(recipe, f"serve_{port}.log"))
+    up_s = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{port}"
+    bodies = [request_body(16000, i) for i in (1, 2, 3)]
+    try:
+        post_convert(url, request_body(16000, 99))  # warm-up
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            before = json.loads(r.read())
+        with ThreadPoolExecutor(3) as pool:
+            replies = list(pool.map(lambda b: post_convert(url, b), bodies))
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            after = json.loads(r.read())
+    finally:
+        stop(proc)
+    served = []
+    for status, data, _ in replies:
+        wav, sr = parse_wav(data)
+        check(status == 200 and sr == 16000 and wav.shape == (BENCH_FRAMES * 256,)
+              and np.isfinite(wav).all() and wav.std() > 1e-3,
+              f"serve --vocoder istft: reply {status}, {sr} Hz, {wav.shape}")
+        served.append(wav)
+    d_req, d_bat = (after[k] - before[k] for k in ("requests", "batches"))
+    check(d_req == 3 and d_bat == 1, f"serve --vocoder istft: {d_req} requests in {d_bat} drains")
+    lat = sorted(r[2] for r in replies)
+    print(f"serve --vocoder istft [{card}]: up in {up_s:.1f} s; 3 concurrent POST /convert of "
+          f"0.5 s answered 200 with {BENCH_FRAMES * 256}-sample wavs in {d_bat} drain; latency "
+          f"min {lat[0]:.3f} s, max {lat[-1]:.3f} s", flush=True)
+
+    # the same requests' mels, from the same VAE served here without a
+    # vocoder, synthesized on the card and on the CPU
+    vae = DisentangledVAE(Config().vae)
+    load_last_checkpoint(os.path.join(run8, "checkpoints"), vae)
+    service = ConversionService(Config(), vae, mel8, vocoder=None, max_wait_ms=500.0,
+                                device=dev)
+    port = free_port()
+    server = make_http_server(service, "127.0.0.1", port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with ThreadPoolExecutor(3) as pool:
+            mel_replies = list(pool.map(lambda b: post_convert(f"http://127.0.0.1:{port}", b),
+                                        bodies))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    mels = [np.load(io.BytesIO(r[1])) for r in mel_replies]
+    voc_card = make_istft_vocoder(paths["istft"], device=dev)
+    voc_cpu = make_istft_vocoder(paths["istft"], device="cpu")
+    want = voc_cpu.batch(mels)
+    voc_card.batch(mels)  # warm-up: cuDNN and cuFFT plans
+    got, syn_ms = events_ms(lambda: voc_card.batch(mels))
+    peak = max(np.abs(w).max() for w in want)
+    syn_err = max(np.abs(g - w).max() for g, w in zip(got, want)) / peak
+    # the last samples of a bucket-long mel's synthesis lie at the
+    # overlap-add's edge, amplified (dvc_tpu's behaviour, ROADMAP Queue 3):
+    # their peak over the rest's, in the served wavs
+    spike = [np.abs(w[-32:]).max() / np.abs(w[:-256]).max() for w in served]
+    audio_s = sum(len(w) for w in got) / 16000
+    print(f"iSTFT synthesis [{card}] of the 3 requests' mels {[m.shape for m in mels]} in one "
+          f"batch: card {syn_ms:.2f} ms ({audio_s / (syn_ms / 1e3):.1f}x real time for "
+          f"{audio_s:.3f} s of audio), card against CPU {syn_err:.3e} of the peak (limit "
+          f"{ISTFT_PEAK_RTOL}); the served wavs' last 32 samples peak at "
+          f"{', '.join(f'{v:.1f}' for v in spike)}x the rest's (reported)",
+          flush=True)
+    check(syn_err <= ISTFT_PEAK_RTOL, f"iSTFT synthesis card vs CPU {syn_err}")
+
+    # (iv) convert with the trained WaveNet: one launch of the sampler
+    mels10, run10 = os.path.join(recipe, "mels_no_trim"), os.path.join(recipe, "run")
+    ws.wavenet_generate.launches.clear()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        check(cli.main(["convert", "--dataset_fp", mels10, "--log_dir", run10, "--src_spk",
+                        "p228", "--trg_spk", "p227", "--num_utterances", "1",
+                        "--vocoder_ckpt", paths["wavenet"], "--device", "cuda"]) == 0,
+              "convert with the trained WaveNet")
+        torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    launches = dict(ws.wavenet_generate.launches)
+    recs = sum(e.count for e in prof.key_averages() if "wavenet_persistent" in e.key)
+    out = os.path.join(run10, "generation", "p228_to_p227", "convert_p228_to_p227_000.wav")
+    w, sr = read_wav(out)
+    check(recs == 1 and launches == {"bfloat16": 1},
+          f"trained WaveNet convert: {recs} wavenet_persistent records, launches {launches}")
+    check(sr == 16000 and np.isfinite(w).all() and np.abs(w).max() <= 1.0 and w.std() > 0,
+          f"trained WaveNet convert wrote {out}")
+    print(f"convert with the trained WaveNet [{card}]: {conv_s:.1f} s in this process for 1 "
+          f"utterance ({len(w) / 16000:.2f} s of audio): {recs} wavenet_persistent record, "
+          f"launches {launches}", flush=True)
+
+    # the kernel on the trained EMA weights: float32 with feedback (the fine
+    # check), then bf16 at the main path's shape with the feedback cut
+    trained = WaveNet(VocoderConfig())
+    trained.load_state_dict(load_vocoder_params(paths["wavenet"]))
+    trained = trained.to(dev).eval()
+    nofb = copy.deepcopy(trained)
+    with torch.no_grad():
+        nofb.first_conv.weight.zero_()
+    g = torch.Generator(device=dev).manual_seed(60)
+    frames = torch.rand(b_main, f_main, 80, device=dev, generator=g)
+    with torch.inference_mode():
+        cond = trained.upsample(frames).contiguous()
+    f32 = ws.pack_wavenet_params(trained, torch.float32, dev)
+    cond_s = cond[:, :1024].contiguous()
+    plain = ws.wavenet_generate_plain(f32, cond_s, 0, True)
+    err = (ws.wavenet_generate(f32, cond_s, 0, True) - plain).abs().max().item()
+    bad = (ws.wavenet_generate(layer0_wrong_tap(f32), cond_s, 0, True) - plain).abs().max().item()
+    print(f"kernel on the trained EMA weights [{card}] float32 with feedback, cond "
+          f"{tuple(cond_s.shape)}: max_abs_err {err:.3e} (atol {F32_ATOL}); trajectory std "
+          f"{plain.std().item():.4f}; layer 0's ring taps at twice its dilation: "
+          f"{bad:.3e}, {'caught' if bad > F32_ATOL else 'NOT caught'} (reported)", flush=True)
+    check(math.isfinite(err) and err <= F32_ATOL, f"trained weights, float32: kernel vs plain {err}")
+
+    pk = ws.pack_wavenet_params(nofb, torch.bfloat16, dev)
+    ref = ws.wavenet_open_loop_plain(pk, cond)
+    kern, draws, _ = ws.wavenet_generate_checked(pk, cond, 0, True)
+    check(bool((draws == kern[None]).all()), "trained weights: the blocks' draws disagree")
+
+    def errs(out):
+        d = out - ref
+        return d.abs().max().item(), d.pow(2).mean().sqrt().item()
+
+    def passes(e, atol, rms):
+        return math.isfinite(e[0]) and e[0] <= atol and e[1] <= rms
+
+    e_ok = errs(kern)
+    e_bad = errs(ws.wavenet_generate(layer0_wrong_tap(pk), cond, 0, True))
+    caught = not passes(e_bad, TRAINED_NOFB_ATOL, TRAINED_NOFB_RMS)
+    caught6 = not passes(e_bad, MAIN_NOFB_ATOL, MAIN_NOFB_RMS)
+    print(f"kernel on the trained EMA weights [{card}] bf16, cond {tuple(cond.shape)}, no "
+          f"feedback, against the open-loop plain version: max_abs_err {e_ok[0]:.3e}, rms err "
+          f"{e_ok[1]:.3e} (atol {TRAINED_NOFB_ATOL}, rms {TRAINED_NOFB_RMS}; phase 6 (v)'s "
+          f"{MAIN_NOFB_ATOL}, {MAIN_NOFB_RMS}: "
+          f"{'met' if passes(e_ok, MAIN_NOFB_ATOL, MAIN_NOFB_RMS) else 'NOT met'}); trajectory "
+          f"std {ref.std().item():.4f}; layer 0's ring taps at twice its dilation: max "
+          f"{e_bad[0]:.3e}, rms {e_bad[1]:.3e}, {'caught' if caught else 'NOT caught'} "
+          f"({'caught' if caught6 else 'NOT caught'} at phase 6 (v)'s limits; reported)",
+          flush=True)
+    check(passes(e_ok, TRAINED_NOFB_ATOL, TRAINED_NOFB_RMS),
+          f"trained weights, no feedback: kernel vs plain {e_ok}")
+
+    # (v) ms a train step and peak memory, each arch at its CLI shapes, alone
+    del trained, nofb, pk, f32
+    torch.cuda.empty_cache()
+    vcfg = VocoderConfig()
+    x, c = (torch.from_numpy(a).to(dev)
+            for a in next(vt.wav_batches(wav16, 2, 8000, vcfg, seed=SEED)))
+    mel, wav = (torch.from_numpy(a).to(dev)
+                for a in next(ivt.mel_wav_batches(wav16, 2, ISTFT_CROP, seed=SEED)))
+    for name, trainer, step, iters in (
+            ("WaveNet (24 layers, 512 channels), batch 2 x 7936 samples",
+             vt.VocoderTrainer(vcfg, device=dev), lambda tr: tr.step_on(x, c), 10),
+            ("iSTFT (512 channels, 8 blocks), batch 2 x 31 frames",
+             ivt.ISTFTVocoderTrainer(device=dev), lambda tr: tr.step_fn(mel, wav), 20)):
+        for _ in range(3):
+            step(trainer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held_gb = torch.cuda.memory_allocated(dev) / 1e9
+        _, ms = events_ms(lambda: [step(trainer) for _ in range(iters)])
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        extra = ""
+        if name.startswith("WaveNet"):
+            tflop = 3 * 2 * WAVENET_MACS * x.shape[0] * x.shape[1] / 1e12
+            extra = (f"; ~{tflop:.2f} TFLOP a step (forward and backward), "
+                     f"{tflop / (ms / iters / 1e3):.1f} TFLOP/s, float32 bound "
+                     f"{tflop * 1e12 / PEAK_FLOPS[torch.float32] * 1e3:.1f} ms")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, p_ms = events_ms(lambda: [step(trainer) for _ in range(3)])
+        busy_us = device_busy_us(prof)
+        extra += (f"; the profiler over 3 steps: device busy {busy_us / 1e3:.1f} of {p_ms:.1f} "
+                  f"ms (idle share {1 - busy_us / (p_ms * 1e3):.3f})" if busy_us > 0
+                  else "; device busy not measured (no device time recorded)")
+        print(f"vocoder train step [{card}] {name}: {ms / iters:.2f} ms a step (mean of "
+              f"{iters}), peak memory {peak_gb:.2f} GB ({peak_gb - held_gb:.2f} GB above the "
+              f"{held_gb:.2f} GB allocated before){extra}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1618,12 +2092,16 @@ def main() -> int:
     mel8, run8 = train_phase(card, dev, work.name)
     phase_done(8)
     serve_phase(card, dev, mel8, run8)
-    work.cleanup()
     phase_done(9)
 
-    # 10. the verify recipe through the CLI ------------------------------------
-    recipe_phase(card, dev)
+    # 10. the verify recipe through the CLI; 11. the vocoders trained and served
+    recipe = tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_")
+    recipe_phase(card, dev, recipe.name)
     phase_done(10)
+    vocoder_phase(card, dev, recipe.name, mel8, run8, b_main, f_main)
+    recipe.cleanup()
+    work.cleanup()
+    phase_done(11)
 
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's

@@ -1,13 +1,18 @@
-"""CLI of the port: preprocess / train / convert / eval-mcd / serve / vocode.
+"""CLI of the port: preprocess / train / convert / eval-mcd / serve / vocode
+/ train-vocoder.
 
 Same flags and defaults as dvc_tpu's commands (dvc_tpu/cli/run.py), plus
 ``--device {cuda,cpu}`` (default cuda; cuda without a card is an error).
 The vocoder is Griffin-Lim by default (``--gl_iters``, 32); a bare
 ``--vocoder_ckpt`` selects the WaveNet vocoder (its sampler is the CUDA
-kernel on cuda); ``--vocoder none`` returns mels.  ``--profile_transfer``
-converts or serves with the model-free DSP route.  The iSTFT vocoder, the
-WORLD route, orbax checkpoints, ``eval-mcd --analysis device`` and the
-other commands are not ported yet and exit with a message.
+kernel on cuda); ``--vocoder istft --vocoder_ckpt`` the iSTFT vocoder;
+``--vocoder none`` returns mels.  ``--profile_transfer`` converts or serves
+with the model-free DSP route.  ``train-vocoder`` trains the WaveNet (or,
+with ``--arch istft``, the iSTFT vocoder) on a directory of wavs.  The
+WORLD route, orbax checkpoints, ``eval-mcd --analysis device``,
+``--analyze``, ``--long_context`` and ``--adv_cof`` are not ported yet and
+exit with a message; dvc_tpu's other commands (train-fs, the speaker
+encoder's, AutoVC's) are not here yet.
 
 Usage (the verify recipe, then serving):
   python -m dvc_tpu_torch.cli.run preprocess <datasets_root> -o <mel_dir> -d VCTK [--no_trim]
@@ -18,6 +23,8 @@ Usage (the verify recipe, then serving):
   python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --log_dir <run>
   python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --profile_transfer
   python -m dvc_tpu_torch.cli.run vocode <mel.npy> [--vocoder_ckpt <r9y9 .pth | .msgpack>]
+  python -m dvc_tpu_torch.cli.run train-vocoder <wav_dir> -m <models_dir> [--arch istft]
+  python -m dvc_tpu_torch.cli.run convert ... --vocoder istft --vocoder_ckpt <istft .msgpack>
 """
 
 from __future__ import annotations
@@ -72,9 +79,9 @@ def _add_fs_args(p: argparse.ArgumentParser) -> None:
 
 def _add_vocoder_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--vocoder_ckpt", default="",
-                   help="WaveNet checkpoint (r9y9 .pth or dvc_tpu's .msgpack); "
-                        "overrides the "
-                        "griffinlim default")
+                   help="WaveNet checkpoint (r9y9 .pth or dvc_tpu's .msgpack), "
+                        "which overrides the griffinlim default; with --vocoder "
+                        "istft, the iSTFT vocoder's .msgpack")
     p.add_argument("--vocoder", default="griffinlim",
                    choices=["none", "griffinlim", "istft"])
     p.add_argument("--gl_iters", type=int, default=32)
@@ -109,11 +116,14 @@ def _load_model(args, cfg):
 
 
 def _make_cli_vocoder(args, cfg):
-    """A bare --vocoder_ckpt is the WaveNet; griffinlim is the
-    checkpoint-free default; none disables waveform output; istft is not
-    ported yet."""
+    """--vocoder istft needs --vocoder_ckpt; a bare --vocoder_ckpt is the
+    WaveNet; griffinlim is the checkpoint-free default; none disables
+    waveform output."""
     if args.vocoder == "istft":
-        raise SystemExit(f"--vocoder istft is {NOT_PORTED}")
+        if not args.vocoder_ckpt:
+            raise SystemExit("--vocoder istft needs --vocoder_ckpt")
+        from dvc_tpu_torch.convert.vocode import make_istft_vocoder
+        return make_istft_vocoder(args.vocoder_ckpt, audio=cfg.audio, device=args.device)
     if args.vocoder_ckpt:
         from dvc_tpu_torch.convert.vocode import make_vocoder
         return make_vocoder(args.vocoder_ckpt, seed=0, device=args.device)
@@ -205,7 +215,7 @@ def cmd_serve(args) -> int:
                        f"{len(service.speakers())} target speakers, profile-transfer "
                        f"DSP route, device {args.device}")
         return 0
-    vocoder = _make_cli_vocoder(args, cfg)  # unported vocoders exit before any load
+    vocoder = _make_cli_vocoder(args, cfg)  # a bad vocoder choice exits before any load
     fs_mask = _load_fs_mask(args, cfg)
     service = ConversionService(cfg, _load_model(args, cfg), args.dataset_fp, vocoder,
                                 max_wait_ms=args.max_wait_ms, fs_mask=fs_mask,
@@ -229,7 +239,7 @@ def cmd_convert(args) -> int:
             raise SystemExit("--profile_transfer is model-free; --fs_mask does not apply")
     else:
         use_exact_float32()  # the VAE is served in float32, never TF32
-    vocoder = _make_cli_vocoder(args, cfg)  # unported vocoders exit before any load
+    vocoder = _make_cli_vocoder(args, cfg)  # a bad vocoder choice exits before any load
     if not args.profile_transfer:
         model = _load_model(args, cfg).to(device).eval()
     converter = VoiceConverter(cfg, model, seed=args.seed, fs_mask=_load_fs_mask(args, cfg),
@@ -261,6 +271,37 @@ def cmd_vocode(args) -> int:
     out = args.out or os.path.splitext(args.mel_npy)[0] + "_vocoded.wav"
     write_wav(out, wav, 16_000)
     print(f"wrote {out} ({len(wav) / 16_000:.2f}s)")
+    return 0
+
+
+def cmd_train_vocoder(args) -> int:
+    """Vocoder training on a directory of wavs: --arch wavenet (the
+    default) trains the reference recipe's AR WaveNet and saves its EMA
+    trail; --arch istft trains the non-autoregressive iSTFT vocoder."""
+    if args.arch == "istft":
+        from dvc_tpu_torch.train.istft_vocoder_trainer import (ISTFTVocoderTrainer,
+                                                               mel_wav_batches)
+        trainer = ISTFTVocoderTrainer(lr=args.lr, seed=args.seed, device=args.device)
+        crop_frames = max(8, args.max_time_steps // trainer.audio.hop_size)
+        batches = mel_wav_batches(args.wav_dir, args.batch_size, crop_frames, seed=args.seed)
+        trainer.train_steps(batches, args.n_steps)
+        run_id = "istft_voc" if args.run_id == "wavenet" else args.run_id
+        path = trainer.save(args.models_dir, run_id=run_id)
+        print(f"saved istft vocoder checkpoint -> {path}")
+        return 0
+
+    from dvc_tpu_torch.config import VocoderConfig
+    from dvc_tpu_torch.train.vocoder_trainer import VocoderTrainer, wav_batches
+    cfg = VocoderConfig(layers=args.layers, stacks=args.stacks,
+                        residual_channels=args.residual_channels,
+                        gate_channels=args.residual_channels,
+                        skip_out_channels=max(8, args.residual_channels // 2))
+    trainer = VocoderTrainer(cfg, lr=args.lr, device=args.device)
+    batches = wav_batches(args.wav_dir, args.batch_size, args.max_time_steps, cfg,
+                          seed=args.seed)
+    trainer.train_steps(batches, args.n_steps)
+    path = trainer.save(args.models_dir, run_id=args.run_id)
+    print(f"saved vocoder (EMA) checkpoint -> {path}")
     return 0
 
 
@@ -369,6 +410,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gl_iters", type=int, default=32)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.set_defaults(fn=cmd_vocode)
+
+    p = sub.add_parser("train-vocoder")
+    p.add_argument("wav_dir")
+    p.add_argument("-m", "--models_dir", required=True)
+    p.add_argument("--run_id", default="wavenet")
+    p.add_argument("--n_steps", type=int, default=1000)
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--max_time_steps", type=int, default=8000)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--layers", type=int, default=24)
+    p.add_argument("--stacks", type=int, default=4)
+    p.add_argument("--residual_channels", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--arch", default="wavenet", choices=["wavenet", "istft"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_train_vocoder)
 
     p = sub.add_parser("serve")
     _add_model_args(p)

@@ -1,8 +1,8 @@
 """Typed configuration: the dataclasses the serving and training paths read.
 
 A copy of dvc_tpu/config.py's AudioConfig, VAEConfig, LossConfig,
-TrainConfig, VocoderConfig and Config (the port imports nothing of
-dvc_tpu), cut to the fields the port reads; names and defaults are
+TrainConfig, VocoderConfig, ISTFTVocoderConfig and Config (the port imports
+nothing of dvc_tpu), cut to the fields the port reads; names and defaults are
 dvc_tpu's.  TrainConfig has no ``donate_state``: there is no jit to donate
 to.  ``remat``, ``checkpoint_format="orbax"`` and LossConfig's ``adv_*``
 fields are kept so a dvc_tpu config reads the same, but the trainer refuses
@@ -123,6 +123,9 @@ class VocoderConfig:
     freq_axis_kernel_size: int = 3
     log_scale_min: float = -32.23619130191664
     legacy: bool = True                # x sqrt(1/2) skip scaling
+    # dvc_tpu/config.py:145: on the layer inputs, in training only; last here,
+    # not after kernel_size as in dvc_tpu, so positional use still holds
+    dropout: float = 1 - 0.95
 
     @property
     def layers_per_stack(self) -> int:
@@ -130,6 +133,18 @@ class VocoderConfig:
 
     def dilation(self, layer: int) -> int:
         return 2 ** (layer % self.layers_per_stack)
+
+
+@dataclass(frozen=True)
+class ISTFTVocoderConfig:
+    """Non-autoregressive iSTFT-head vocoder (FreeV / Autovocoder direction,
+    PAPERS.md): a dilated convnet refines the pseudo-inverse-mel magnitude
+    prior and predicts phase; the waveform is one overlap-add iSTFT."""
+
+    channels: int = 512
+    blocks: int = 8                       # dilated residual conv blocks
+    kernel_size: int = 7
+    dilation_cycle: Sequence[int] = (1, 2, 4, 8)
 
 
 @dataclass(frozen=True)

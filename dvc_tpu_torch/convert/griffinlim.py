@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from dvc_tpu_torch.config import AudioConfig
 from dvc_tpu_torch.ops.mel import db_to_amp, denormalize_mel, mel_filterbank
 from dvc_tpu_torch.ops.stft import _window, frame_signal, num_frames, pad_lr
-from dvc_tpu_torch.utils.device import resolve_device
+from dvc_tpu_torch.utils.device import device_constant, resolve_device
 
 
 @functools.lru_cache(maxsize=8)
@@ -35,18 +35,20 @@ def _mel_pinv(sample_rate: int, n_fft: int, n_mels: int, fmin: float,
 
 def mel_to_stft_magnitude(mel_norm: torch.Tensor,
                           cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
-    """[0, 1]-normalized (..., n_mels, T) mel -> (..., T, n_freq) |STFT|."""
-    s_db = denormalize_mel(mel_norm.to(torch.float32), cfg.min_level_db) + cfg.ref_level_db
+    """[0, 1]-normalized (..., n_mels, T) mel -> (..., T, n_freq) |STFT|, in
+    the mel's floating type, at least float32."""
+    dt = torch.promote_types(mel_norm.dtype, torch.float32)
+    s_db = denormalize_mel(mel_norm.to(dt), cfg.min_level_db) + cfg.ref_level_db
     mel_amp = db_to_amp(s_db)  # (..., n_mels, T)
-    pinv = torch.from_numpy(_mel_pinv(cfg.sample_rate, cfg.fft_size, cfg.num_mels,
-                                      cfg.fmin, cfg.fmax)).to(mel_amp.device)
+    pinv = device_constant(_mel_pinv, (cfg.sample_rate, cfg.fft_size, cfg.num_mels,
+                                       cfg.fmin, cfg.fmax), mel_amp.device, dt)
     mag = torch.einsum("fm,...mt->...tf", pinv, mel_amp)
     return torch.clamp(mag, min=0.0)
 
 
 def _stft_complex(wav: torch.Tensor, cfg: AudioConfig) -> torch.Tensor:
     frames = frame_signal(wav, cfg.fft_size, cfg.hop_size)
-    win = torch.from_numpy(_window(cfg.window, cfg.fft_size)).to(wav.device)
+    win = device_constant(_window, (cfg.window, cfg.fft_size), wav.device)
     return torch.fft.rfft(frames * win, n=cfg.fft_size, dim=-1)
 
 
@@ -69,7 +71,7 @@ def istft(spec: torch.Tensor, length: int, cfg: AudioConfig = AudioConfig()
     istft(stft(x)) ~= x for the sqrt-hann analysis/synthesis pair."""
     fsize, fshift = cfg.fft_size, cfg.hop_size
     m = spec.shape[-2]
-    win = torch.from_numpy(_window(cfg.window, fsize)).to(spec.device)
+    win = device_constant(_window, (cfg.window, fsize), spec.device)
     frames = torch.fft.irfft(spec, n=fsize, dim=-1) * win  # (..., M, fsize)
 
     left, _right = pad_lr(length, fsize, fshift)
@@ -78,7 +80,7 @@ def istft(spec: torch.Tensor, length: int, cfg: AudioConfig = AudioConfig()
     cols = frames.reshape(-1, m, fsize).transpose(1, 2)    # (N, fsize, M)
     out = F.fold(cols, output_size=(1, total), kernel_size=(1, fsize),
                  stride=(1, fshift)).reshape(batch_shape + (total,))
-    norm = torch.from_numpy(_overlap_norm(cfg.window, fsize, fshift, m)).to(out.device)
+    norm = device_constant(_overlap_norm, (cfg.window, fsize, fshift, m), out.device)
     return (out / norm)[..., left:left + length]
 
 

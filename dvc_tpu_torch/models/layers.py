@@ -14,12 +14,34 @@ ConvNorm takes (B, C, T) and LinearNorm acts on the last axis.
   dvc_tpu's (layers.py:154-157).  Momentum 0.1 is flax's 0.9.
 - LSTM: ``nn.LSTM`` (batch_first); its gate order i, f, g, o is the order
   dvc_tpu's LSTM keeps (layers.py:190-223), so weights carry over as they are.
+- flax_init_: flax's default initializers for the vocoders trained in the
+  port (lecun-normal conv kernels, zero biases).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module) -> nn.Module:
+    """Give every ``nn.Conv1d`` below ``module`` flax's ``nn.Conv`` default
+    init, in distribution: lecun_normal (a normal truncated at two standard
+    deviations, scaled to variance 1/fan_in) and a zero bias.  LayerNorms
+    already start at ones and zeros, as flax's; other layers are left as
+    they are.  Draws from torch's global RNG."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv1d):
+            fan_in = m.weight.shape[1] * m.weight.shape[2]
+            # flax divides by the std of a unit normal truncated at +-2
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return module
 
 
 class LinearNorm(nn.Module):

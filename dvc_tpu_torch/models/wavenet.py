@@ -8,8 +8,10 @@ upsample_conv.{2j}); weight norm is fused at load (convert/vocode.py).
 Public functions keep dvc_tpu's (B, T, C) layout so tests compare like with
 like; inside, convolutions run in torch's (B, C, T).
 
-  * WaveNet          — teacher-forced forward and the conditioning upsampler;
-  * sample_from_mol  — the MoL head's sampler.
+  * WaveNet          — teacher-forced forward (with the layer-input dropout
+                       of training) and the conditioning upsampler;
+  * discretized_mix_logistic_loss / sample_from_mol — the MoL head's NLL
+                       and sampler.
 The autoregressive sampler (the CUDA kernel and its plain PyTorch version)
 lives in kernels/wavenet_step.py.
 """
@@ -42,9 +44,16 @@ class _ResidualGLU(nn.Module):
         self.conv1x1_skip = nn.Conv1d(g2, cfg.skip_out_channels, 1)
         self.conv1x1_out = nn.Conv1d(g2, cfg.residual_channels, 1)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor):
+    def forward(self, x: torch.Tensor, c: torch.Tensor, keep: float = 1.0,
+                generator: torch.Generator | None = None):
         # x (B, R, T), c (B, C, T) -> ((B, R, T) residual out, (B, S, T) skip)
-        h = self.conv(F.pad(x, (self.pad, 0))) + self.conv1x1c(c)
+        xin = x
+        if keep < 1.0:
+            # inverted dropout on the conv's input only: the residual below
+            # keeps the undropped x (dvc_tpu/models/wavenet.py:100-104)
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            xin = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        h = self.conv(F.pad(xin, (self.pad, 0))) + self.conv1x1c(c)
         a, g = h.chunk(2, dim=1)
         out = torch.tanh(a) * torch.sigmoid(g)
         return (self.conv1x1_out(out) + x) * SQRT_HALF, self.conv1x1_skip(out)
@@ -86,10 +95,15 @@ class WaveNet(nn.Module):
             x = m(x)
         return x.squeeze(1).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor,
-                upsample_cond: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor, upsample_cond: bool = True,
+                train: bool = False, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
         """Teacher-forced forward: x (B, T, 1) waveform, c (B, T_frames, C)
-        (or (B, T, C) with upsample_cond=False) -> (B, T, out_channels)."""
+        (or (B, T, C) with upsample_cond=False) -> (B, T, out_channels).
+
+        ``train=True`` drops each layer's input with ``cfg.dropout``, the
+        masks drawn from ``generator`` (torch's default when None), layer by
+        layer; ``train=False`` draws nothing."""
         if upsample_cond:
             c = self.upsample(c)
         if c.shape[1] != x.shape[1]:
@@ -99,14 +113,51 @@ class WaveNet(nn.Module):
         c = c.transpose(1, 2)
         skips = None
         scale = SQRT_HALF if self.cfg.legacy else 1.0
+        keep = 1.0 - self.cfg.dropout if train else 1.0
         for layer in self.conv_layers:
-            h, s = layer(h, c)
+            h, s = layer(h, c, keep, generator)
             skips = s if skips is None else (skips + s) * scale
         out = F.relu(self.last_conv_layers[1](F.relu(skips)))
         return self.last_conv_layers[3](out).transpose(1, 2)
 
 
 # --- mixture of logistics ----------------------------------------------------
+
+def discretized_mix_logistic_loss(y_hat: torch.Tensor, y: torch.Tensor,
+                                  num_classes: int = 65536,
+                                  log_scale_min: float = -32.23619130191664,
+                                  reduce: bool = True) -> torch.Tensor:
+    """Negative log-likelihood of y (B, T, 1) in [-1, 1] under the
+    discretized MoL y_hat (B, T, 3K) (dvc_tpu/models/wavenet.py:166-198):
+    the mean, or the (B, T) NLLs with reduce=False.  The edge bins take the
+    CDF's tails; where a bin's mass is below 1e-5 the density at its centre
+    stands in for it."""
+    nr_mix = y_hat.shape[-1] // 3
+    logit_probs = y_hat[..., :nr_mix]
+    means = y_hat[..., nr_mix:2 * nr_mix]
+    log_scales = torch.clamp(y_hat[..., 2 * nr_mix:], min=log_scale_min)
+
+    y = y.expand(y_hat.shape[:-1] + (1,))
+    centered = y - means
+    inv_stdv = torch.exp(-log_scales)
+    plus_in = inv_stdv * (centered + 1.0 / (num_classes - 1))
+    min_in = inv_stdv * (centered - 1.0 / (num_classes - 1))
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+
+    log_cdf_plus = plus_in - F.softplus(plus_in)      # log P(X < -0.999..)
+    log_one_minus_cdf_min = -F.softplus(min_in)       # log P(X > 0.999..)
+    mid_in = inv_stdv * centered
+    log_pdf_mid = mid_in - log_scales - 2.0 * F.softplus(mid_in)
+
+    inner = torch.where(cdf_delta > 1e-5,
+                        torch.log(torch.clamp(cdf_delta, min=1e-12)),
+                        log_pdf_mid - math.log((num_classes - 1) / 2.0))
+    log_probs = torch.where(y < -0.999, log_cdf_plus,
+                            torch.where(y > 0.999, log_one_minus_cdf_min, inner))
+    log_probs = log_probs + F.log_softmax(logit_probs, dim=-1)
+    nll = -torch.logsumexp(log_probs, dim=-1)
+    return nll.mean() if reduce else nll
+
 
 def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
     # jax.random.uniform(minval=1e-5, maxval=1-1e-5)

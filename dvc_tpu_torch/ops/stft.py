@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from dvc_tpu_torch.config import AudioConfig
+from dvc_tpu_torch.utils.device import device_constant
 
 
 def num_frames(length: int, fsize: int, fshift: int) -> int:
@@ -61,6 +62,6 @@ def frame_signal(wav: torch.Tensor, fsize: int, fshift: int) -> torch.Tensor:
 def stft_magnitude(wav: torch.Tensor, cfg: AudioConfig = AudioConfig()) -> torch.Tensor:
     """|STFT|, (..., T) -> (..., M, n_fft//2+1), float32."""
     frames = frame_signal(wav.to(torch.float32), cfg.fft_size, cfg.hop_size)
-    win = torch.from_numpy(_window(cfg.window, cfg.fft_size)).to(wav.device)
+    win = device_constant(_window, (cfg.window, cfg.fft_size), wav.device)
     spec = torch.fft.rfft(frames * win, n=cfg.fft_size, dim=-1)
     return spec.abs().to(torch.float32)

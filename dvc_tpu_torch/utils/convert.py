@@ -1,10 +1,12 @@
 """The weight bridge between dvc_tpu parameter trees and the port's state
 dicts, both ways, and the reference .pth helpers.
 
-``vae_state_dict_from_jax`` and ``wavenet_state_dict_from_jax`` take the JAX
-package's parameter trees as nested mappings of numpy arrays and return
-state dicts with the reference checkpoints' names;
-``vae_tree_from_state_dict`` and ``wavenet_tree_from_state_dict`` go back,
+``vae_state_dict_from_jax``, ``wavenet_state_dict_from_jax`` and
+``istft_state_dict_from_jax`` take the JAX package's parameter trees as
+nested mappings of numpy arrays and return state dicts with the reference
+checkpoints' names (the iSTFT vocoder has no reference: its names are the
+port's modules'); ``vae_tree_from_state_dict``,
+``wavenet_tree_from_state_dict`` and ``istft_tree_from_state_dict`` go back,
 and ``optax_adam_from_torch`` / ``torch_adam_from_optax`` carry Adam's
 moments and step between torch and optax.  The map is
 dvc_tpu/utils/torch_convert.py's, inverted:
@@ -14,6 +16,7 @@ dvc_tpu/utils/torch_convert.py's, inverted:
   LSTM w_ih/w_hh/b_ih/b_hh_l{n}[_reverse] -> weight_ih/.../bias_hh_l{n}[_reverse]
   bn scale/bias (params), mean/var (batch_stats)
                                      -> BatchNorm1d weight/bias, running_mean/var
+  LayerNorm scale/bias               -> LayerNorm weight/bias
   upsample up{j}_kernel (kf, 2s)     -> ConvTranspose2d weight (1, 1, kf, 2s)
                                         (kept in torch layout by dvc_tpu)
 
@@ -202,6 +205,44 @@ def wavenet_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
         up[f"up{j}_kernel"] = _np(sd[f"upsample_conv.{2 * j}.weight"])[0, 0].copy()
         up[f"up{j}_bias"] = _np(sd[f"upsample_conv.{2 * j}.bias"])
     params["upsample"] = up
+    return params
+
+
+def _istft_layout(n_blocks: int) -> list[tuple[str, str, tuple[str, ...]]]:
+    """(kind, state-dict prefix, dvc_tpu tree path) of every iSTFT vocoder
+    layer; both directions of the bridge walk this one table."""
+    out = [("conv", "stem", ("stem",)), ("ln", "stem_norm", ("stem_norm",))]
+    for i in range(n_blocks):
+        out += [("conv", f"blocks.{i}.conv_a", (f"block{i}", "conv_a")),
+                ("conv", f"blocks.{i}.conv_b", (f"block{i}", "conv_b"))]
+    return out + [("ln", "head_norm", ("head_norm",)), ("conv", "mag_head", ("mag_head",)),
+                  ("conv", "phase_head", ("phase_head",))]
+
+
+def istft_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """dvc_tpu ISTFTVocoder params -> the port's ISTFTVocoder state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for kind, prefix, path in _istft_layout(sum(1 for k in params if k.startswith("block"))):
+        p = _get(params, path)
+        if kind == "ln":
+            sd[f"{prefix}.weight"] = _t(p["scale"])
+            sd[f"{prefix}.bias"] = _t(p["bias"])
+        else:
+            _conv1d(sd, prefix, p)
+    return sd
+
+
+def istft_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ISTFTVocoder state dict -> dvc_tpu's params tree; the
+    inverse of istft_state_dict_from_jax."""
+    n_blocks = sum(1 for k in sd if k.startswith("blocks.") and k.endswith(".conv_a.weight"))
+    params: dict = {}
+    for kind, prefix, path in _istft_layout(n_blocks):
+        if kind == "ln":
+            _put(params, path, {"scale": _np(sd[f"{prefix}.weight"]),
+                                "bias": _np(sd[f"{prefix}.bias"])})
+        else:
+            _put(params, path, _conv1d_inv(sd, prefix))
     return params
 
 

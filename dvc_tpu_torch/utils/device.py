@@ -6,6 +6,10 @@ for cuda without a card raises: nothing falls back to the CPU silently.
 
 from __future__ import annotations
 
+import functools
+from typing import Callable
+
+import numpy as np
 import torch
 
 
@@ -20,6 +24,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+@functools.lru_cache(maxsize=128)
+def device_constant(make: Callable[..., np.ndarray], args: tuple, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``make(*args)``, a host constant (a window, a filterbank's inverse),
+    as a tensor on ``device``, copied there once per (make, args, device,
+    dtype): a copy from pageable host memory waits for the stream, so one in
+    every step keeps the host from queueing ahead.  Made outside inference
+    mode, so that a constant first made while serving can be saved for a
+    train step's backward.  Callers must not write to it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.asarray(make(*args))).to(device, dtype)
 
 
 def use_exact_float32() -> None:

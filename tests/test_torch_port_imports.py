@@ -30,7 +30,8 @@ MODULES = [
     "dvc_tpu_torch.utils.msgpack", "dvc_tpu_torch.native", "dvc_tpu_torch.native._build",
     "dvc_tpu_torch.native.flac", "dvc_tpu_torch.native.world",
     "dvc_tpu_torch.data.preprocess", "dvc_tpu_torch.ops.world", "dvc_tpu_torch.eval",
-    "dvc_tpu_torch.eval.mcd",
+    "dvc_tpu_torch.eval.mcd", "dvc_tpu_torch.models.istft_vocoder",
+    "dvc_tpu_torch.train.vocoder_trainer", "dvc_tpu_torch.train.istft_vocoder_trainer",
 ]
 
 FORBIDDEN_SO = os.sep + os.path.join("dvc_tpu", "native") + os.sep

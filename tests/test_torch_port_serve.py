@@ -220,8 +220,8 @@ def test_bad_speaker_fails_alone(server):
 
 def test_cli_convert_and_vocode(weights, mel_dir, tmp_path, monkeypatch):
     """Latest-wins checkpoint discovery + `convert` with the WaveNet vocoder
-    and `vocode`, on the CPU; the unported iSTFT vocoder exits with a
-    message (Griffin-Lim, the default, is held in
+    and `vocode`, on the CPU; the iSTFT vocoder without --vocoder_ckpt exits
+    with dvc_tpu's message (Griffin-Lim, the default, is held in
     tests/test_torch_port_griffinlim.py)."""
     _, _, sd = weights
     ck = tmp_path / "run" / "checkpoints"
@@ -249,7 +249,7 @@ def test_cli_convert_and_vocode(weights, mel_dir, tmp_path, monkeypatch):
     monkeypatch.setattr(cli, "_config_from_args", small_config)
     common = ["--dataset_fp", str(mel_dir), "--log_dir", str(tmp_path / "run"),
               "--samples_length", "16", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="--vocoder istft needs --vocoder_ckpt"):
         cli.main(["convert", *common, "--src_spk", "p1", "--trg_spk", "p2",
                   "--vocoder", "istft"])
     assert cli.main(["convert", *common, "--src_spk", "p1", "--trg_spk", "p2",
