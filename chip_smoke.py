@@ -132,15 +132,37 @@ Phases; any failure exits non-zero before a result line is printed:
             a layer-0 ring tap at twice its dilation reported caught or not;
             (v) ms a train step and peak memory of each arch at
             train-vocoder's shapes.
+ 12. latent the mel VAE's remaining train and convert options (no hand
+            kernel: cuDNN/cuBLAS), on phase 10's corpus and run: (i) at the
+            full VAEConfig, batch 8, float32: one adversarial step in each
+            mode (confusion, grl) on the card against the CPU (same VAE,
+            adversary, batch and injected noise; loss terms and adv_ce 1e-5
+            relative, adv_acc equal, both nets' gradients 1e-3 of their max,
+            phase 8's limits); the remat step against the plain step on the
+            card (gradients 1e-5 of their max, BN running statistics equal
+            and counted once); one FeatureSelection step card against CPU
+            (loss 1e-5 relative, updated weights 1e-5 where the gradient is
+            above 1e-6, every step within 2 lr); convert_mel_long_context
+            with phase 10's checkpoint card against CPU (mels 1e-4, phase
+            10's limit); (iii) `train --adv_cof 1` (2 epochs, batch 8:
+            finite losses, the Adversary CE / Acc scalars, a checkpoint, the
+            estimation PNGs) and `train-fs` (feature_mask.npz) as children at
+            once, then `convert --fs_mask ... --analyze` and `convert
+            --long_context --analyze` at once (Griffin-Lim wavs,
+            latent_analysis.npz, fs_mask.npz; the PNGs where matplotlib
+            imports); (ii) then ms a step and peak memory at bench.py's
+            batch of the plain, adversarial and remat steps, beside phase
+            8's plain step.
 Each phase prints its seconds.  The lines before the last report the card
 (nvidia-smi name and power limit), timings and one JSON line of kernels
-(phases 8-11 add none); the last line is
+(phases 8-12 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -655,6 +677,15 @@ def step_against_cpu(cfg, dev):
     (t_c, g_c, s_c), (t_g, g_g, s_g) = out["cpu"], out["card"]
     term_err = max(abs(a.item() - b.item()) / max(abs(a.item()), 1e-12)
                    for a, b in zip(t_c, t_g))
+    grad_err, bias_share = vae_grad_errs(g_c, g_g)
+    stat_err = max((s_c[n] - s_g[n]).abs().max().item() for n in s_c)
+    return term_err, grad_err, bias_share, stat_err, t_c.total.item()
+
+
+def vae_grad_errs(g_c, g_g) -> tuple[float, float]:
+    """(worst max |diff| over max |g| of the VAE's gradients, name -> CPU
+    tensor, against the reference g_c; the worst share of a pre-BN conv
+    bias's gradient, exactly 0 in exact arithmetic, in its weight's)."""
     grad_err, bias_share = 0.0, 0.0
     for n, a in g_c.items():
         b = g_g[n]
@@ -663,13 +694,12 @@ def step_against_cpu(cfg, dev):
             bias_share = max(bias_share, max(a.abs().max().item(), b.abs().max().item()) / w)
             continue
         grad_err = max(grad_err, (a - b).abs().max().item() / a.abs().max().item())
-    stat_err = max((s_c[n] - s_g[n]).abs().max().item() for n in s_c)
-    return term_err, grad_err, bias_share, stat_err, t_c.total.item()
+    return grad_err, bias_share
 
 
 def train_phase(card, dev, work):
     """Phase 8: the VAE training path at full width.  Returns (mel_dir,
-    log_dir) for phase 9."""
+    log_dir) for phase 9 and the bench step's ms and memory for phase 12."""
     from dvc_tpu_torch.config import AudioConfig, Config, TrainConfig
     from dvc_tpu_torch.data.dataset import PairedMelDataset
     from dvc_tpu_torch.train.checkpoint import latest_checkpoint_step
@@ -762,7 +792,7 @@ def train_phase(card, dev, work):
               flush=True)
     del bench
     torch.cuda.empty_cache()
-    return mel_dir, log_dir
+    return mel_dir, log_dir, {"ms": step_ms, "peak_gb": peak_gb, "held_gb": held_gb}
 
 
 def start_serve(args, port, device, log_path):
@@ -1631,6 +1661,301 @@ def vocoder_steps(card, dev, recipe, mel8, run8, b_main, f_main, kids):
         torch.cuda.empty_cache()
 
 
+ADV_SPEAKERS = len(RECIPE_SPEAKERS)  # phase 12: the adversary's width on phase 10's corpus
+FS_LATENTS = 64         # phase 12 (i): the FS step's batch, FeatureSelectionTrainer's
+RESOLVED_G = 1e-6       # phase 12 (i): 100 x Adam's eps; where |g| is above it Adam's first
+                        # step is within 1% of +-lr, so the updated FS weights are held to
+                        # 1e-5 there and every step to 2 lr (tests/test_torch_port_
+                        # feature_selection.py's rule)
+FS_ATOL = 1e-5          # the FS step's loss (relative) and updated weights
+REMAT_GRAD_RTOL = 1e-5  # phase 12 (i): the remat step against the plain step on the card,
+                        # each gradient of its max: the same arithmetic, recomputed
+F32_VAE_GRAD_RTOL = 0.1  # phase 12 (i): the adversarial step's VAE gradients in float32
+                        # card against CPU, of each one's max.  The float32 pair step's
+                        # gradients are ill-conditioned on some batches (the encoder's and
+                        # decoder's convolutions ahead of a train-mode BatchNorm): the plain
+                        # step on the CPU in float32 against float64 reads 1.1e-5 to 1.6e-2
+                        # over three batches, the card 3.1e-2 on this one, where the card in
+                        # float64 agrees with the CPU to 4e-6 (PERF.md section 6).  So the
+                        # step is held at GRAD_RTOL in float64, and at this in float32
+
+
+def latent_steps_against_cpu(card, dev, mels, run):
+    """Phase 12 (i): at the full VAEConfig, batch 8: one adversarial step in
+    each mode on the card against the CPU, in float32 and in float64; the
+    remat step against the plain step on the card, in float64; one FS step
+    on the card against the CPU; and convert_mel_long_context on phase 10's
+    checkpoint card against CPU."""
+    from dvc_tpu_torch.config import VAEConfig
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.models.feature_selection import FeatureSelection
+    from dvc_tpu_torch.models.long_context import convert_mel_long_context
+    from dvc_tpu_torch.train.adversarial import SpeakerAdversary, make_adv_train_step
+    from dvc_tpu_torch.train.checkpoint import load_last_checkpoint
+    from dvc_tpu_torch.train.feature_selection_trainer import make_fs_step
+    from dvc_tpu_torch.train.trainer import make_optimizer, make_train_step
+    t0 = time.perf_counter()
+    v = VAEConfig()
+    rng = np.random.RandomState(12)
+    x1, x2 = (torch.from_numpy(rng.rand(TRAIN_BATCH, v.num_mels, v.frames).astype(np.float32))
+              for _ in range(2))
+    eps = [torch.from_numpy(rng.randn(TRAIN_BATCH, n).astype(np.float32))
+           for n in (v.content_size, v.content_size, v.speaker_size)]
+    spk = torch.from_numpy(rng.randint(0, ADV_SPEAKERS, TRAIN_BATCH))
+    base = seeded(lambda: DisentangledVAE(v, pair_fused=True), SEED + 6).train()
+    adv0 = SpeakerAdversary(v.content_size, ADV_SPEAKERS,
+                            generator=torch.Generator().manual_seed(SEED + 2))
+    for mode in ("confusion", "grl"):
+        for dt, vae_limit in ((torch.float32, F32_VAE_GRAD_RTOL), (torch.float64, GRAD_RTOL)):
+            out = {}
+            for name, d in (("cpu", "cpu"), ("card", dev)):
+                model, adv = copy.deepcopy(base).to(d, dt), copy.deepcopy(adv0).to(d, dt)
+                step = make_adv_train_step(model, make_optimizer(model, 1e-4), adv,
+                                           make_optimizer(adv, 1e-3), adv_cof=1.0, mode=mode,
+                                           compute_dtype="float32")
+                terms, m = step(x1.to(d, dt), x2.to(d, dt), spk.to(d),
+                                eps=tuple(e.to(d, dt) for e in eps))
+                out[name] = ([t.item() for t in terms] + [m["adv_ce"].item()],
+                             m["adv_acc"].item(),
+                             {n: p.grad.cpu() for n, p in model.named_parameters()},
+                             {n: p.grad.cpu() for n, p in adv.named_parameters()})
+            (t_c, a_c, g_c, ag_c), (t_g, a_g, g_g, ag_g) = out["cpu"], out["card"]
+            term_err = max(abs(a - b) / max(abs(a), 1e-12) for a, b in zip(t_c, t_g))
+            grad_err, bias_share = vae_grad_errs(g_c, g_g)
+            adv_err = max((ag_c[n] - ag_g[n]).abs().max().item() / ag_c[n].abs().max().item()
+                          for n in ag_c)
+            tag = f"{mode} {str(dt).replace('torch.', '')}"
+            print(f"adv step card vs CPU [{card}] {tag}, full width, batch {TRAIN_BATCH}, "
+                  f"adv_cof 1: adv_ce {t_c[-1]:.4f}, adv_acc {a_c:.3f} (card {a_g:.3f}); loss "
+                  f"terms and adv_ce rel err {term_err:.3e} (limit {TERM_RTOL}); VAE gradients "
+                  f"rel err {grad_err:.3e} (limit {vae_limit}), adversary gradients "
+                  f"{adv_err:.3e} (limit {GRAD_RTOL}); pre-BN conv biases' share "
+                  f"{bias_share:.3e} (limit {PRE_BN_BIAS_SHARE})", flush=True)
+            check(term_err <= TERM_RTOL, f"adv step {tag}: loss terms card vs CPU {term_err}")
+            check(a_c == a_g, f"adv step {tag}: adv_acc card {a_g} vs CPU {a_c}")
+            check(grad_err <= vae_limit and adv_err <= GRAD_RTOL,
+                  f"adv step {tag}: gradients card vs CPU {grad_err}, {adv_err}")
+            check(bias_share <= PRE_BN_BIAS_SHARE, f"adv step {tag}: pre-BN biases {bias_share}")
+
+    # remat against the plain step, both on the card, in float64 (where the
+    # gradients are well conditioned: see F32_VAE_GRAD_RTOL)
+    runs = []
+    for remat in (False, True):
+        model = copy.deepcopy(base).to(dev, torch.float64)
+        terms = make_train_step(model, make_optimizer(model, 1e-4), compute_dtype="float32",
+                                remat=remat)(x1.to(dev, torch.float64), x2.to(dev, torch.float64),
+                                             eps=tuple(e.to(dev, torch.float64) for e in eps))
+        runs.append(([t.item() for t in terms],
+                     {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {n: b.cpu() for n, b in model.named_buffers()}))
+    (t_p, g_p, b_p), (t_r, g_r, b_r) = runs
+    term_err = max(abs(a - b) / max(abs(a), 1e-12) for a, b in zip(t_p, t_r))
+    grad_err, _ = vae_grad_errs(g_p, g_r)
+    stats_equal = all(torch.equal(b_p[n], b_r[n]) for n in b_p)
+    counted = sorted({b.item() for n, b in b_r.items() if "num_batches_tracked" in n})
+    stat_diff = max((b_p[n].double() - b_r[n].double()).abs().max().item() for n in b_p)
+    print(f"remat step vs plain step [{card}] full width, float64, batch {TRAIN_BATCH}: loss "
+          f"terms rel err {term_err:.3e}, gradients rel err {grad_err:.3e} (limit "
+          f"{REMAT_GRAD_RTOL}); BN running stats equal to the plain step's: {stats_equal} "
+          f"(max diff {stat_diff:.3e}); batches counted {counted}", flush=True)
+    check(grad_err <= REMAT_GRAD_RTOL and term_err <= REMAT_GRAD_RTOL,
+          f"remat step gradients against the plain step {grad_err}, terms {term_err}")
+    check(stats_equal and counted == [1], f"remat step BN statistics: equal {stats_equal}, "
+          f"batches counted {counted}")
+
+    # one FS step on latents of the full latent width
+    fs0 = FeatureSelection(v.latent_dim, ADV_SPEAKERS, torch.Generator().manual_seed(0))
+    lat = torch.from_numpy(rng.randn(FS_LATENTS, v.latent_dim).astype(np.float32))
+    lab = torch.from_numpy(rng.randint(0, ADV_SPEAKERS, FS_LATENTS))
+    out = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        fs = copy.deepcopy(fs0).to(d)
+        loss, acc = make_fs_step(fs, torch.optim.Adam(fs.parameters(), lr=1e-3))(
+            lat.to(d), lab.to(d))
+        out[name] = (loss.item(), acc.item(), {n: (p.detach().cpu(), p.grad.cpu())
+                                               for n, p in fs.named_parameters()})
+    (l_c, acc_c, p_c), (l_g, acc_g, p_g) = out["cpu"], out["card"]
+    w_err, w_step = 0.0, 0.0
+    for n, (pc, gc) in p_c.items():
+        sure = gc.abs() > RESOLVED_G
+        d = (p_g[n][0] - pc).abs()
+        w_err = max(w_err, d[sure].max().item() if sure.any() else 0.0)
+        w_step = max(w_step, d.max().item())
+    fs_err = abs(l_g - l_c) / abs(l_c)
+    print(f"FS step card vs CPU [{card}] latent {v.latent_dim}, {ADV_SPEAKERS} speakers, "
+          f"batch {FS_LATENTS}: loss {l_c:.5f}, rel err {fs_err:.3e}, acc {acc_c:.3f} (card "
+          f"{acc_g:.3f}); updated weights max err {w_err:.3e} where |g| > {RESOLVED_G} "
+          f"(limit {FS_ATOL}), {w_step:.3e} anywhere (limit 2 lr)", flush=True)
+    check(fs_err <= FS_ATOL and acc_c == acc_g, f"FS step loss {fs_err}, acc {acc_c} {acc_g}")
+    check(w_err <= FS_ATOL and w_step <= 2e-3, f"FS step weights {w_err}, {w_step}")
+
+    # convert_mel_long_context with phase 10's trained VAE on a phase 10 utterance
+    src = np.load(os.path.join(mels, "p225", sorted(
+        f for f in os.listdir(os.path.join(mels, "p225")) if f.endswith(".npy"))[0]))
+    trg = np.load(os.path.join(mels, "p226", sorted(
+        f for f in os.listdir(os.path.join(mels, "p226")) if f.endswith(".npy"))[0]))
+    res = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        model = DisentangledVAE(v)
+        load_last_checkpoint(os.path.join(run, "checkpoints"), model)
+        res[name] = convert_mel_long_context(model.to(d).eval(), src, trg, v.frames)
+    lc_err = max(float(np.abs(a - b).max()) for a, b in zip(res["cpu"], res["card"]))
+    print(f"long-context conversion card vs CPU [{card}] phase 10's checkpoint, source "
+          f"{src.shape[1]} frames -> {res['card'][1].shape[1]} ({-(-src.shape[1] // v.frames)} "
+          f"chunks), target {trg.shape[1]} frames: mels max abs err {lc_err:.3e} (limit "
+          f"{MEL_CARD_ATOL}) ({time.perf_counter() - t0:.1f} s for (i))", flush=True)
+    check(all(np.isfinite(a).all() for a in res["card"]), "long-context mels not finite")
+    check(lc_err <= MEL_CARD_ATOL, f"long-context conversion card vs CPU {lc_err}")
+
+
+def latent_step_timings(card, dev, plain8):
+    """Phase 12 (ii): ms a step and peak memory at bench.py's batch of the
+    plain, the adversarial (confusion) and the remat step, in turns after
+    warm-up, beside phase 8's plain step."""
+    from dvc_tpu_torch.config import Config, LossConfig, TrainConfig
+    from dvc_tpu_torch.train.trainer import Trainer
+    g = torch.Generator(device=dev).manual_seed(3)
+    xb1, xb2 = (torch.rand(BENCH_BATCH, 80, BENCH_FRAMES, device=dev, generator=g)
+                for _ in range(2))
+    spk = torch.randint(0, ADV_SPEAKERS, (BENCH_BATCH,), device=dev, generator=g)
+    train = TrainConfig(batch_size=BENCH_BATCH, seed=SEED)
+    iters, read = 20, {}
+    for name, cfg in (
+            ("plain", Config(train=train)),
+            ("adv (confusion)", Config(train=train, loss=LossConfig(
+                adv_cof=1.0, adv_speakers=ADV_SPEAKERS))),
+            ("remat", Config(train=dataclasses.replace(train, remat=True)))):
+        tr = Trainer(cfg, device=dev)
+        for _ in range(3):
+            tr.step_on(xb1, xb2, spk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held_gb = torch.cuda.memory_allocated(dev) / 1e9
+        _, ms = events_ms(lambda: [tr.step_on(xb1, xb2, spk) for _ in range(iters)])
+        loss = tr.step_on(xb1, xb2, spk).total.item()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        check(math.isfinite(loss), f"{name} bench step loss not finite")
+        read[name] = (ms / iters, peak_gb, held_gb)
+        del tr
+        torch.cuda.empty_cache()
+    base_ms = read["plain"][0]
+    for name, (ms, peak, held) in read.items():
+        print(f"train step [{card}] {name}, batch {BENCH_BATCH} x {BENCH_FRAMES} frames, "
+              f"bfloat16 inputs, float32 compute (TF32 off), pair_fused: {ms:.2f} ms a step "
+              f"(mean of {iters}; {ms / base_ms:.3f}x this phase's plain step), "
+              f"{2 * BENCH_BATCH * BENCH_FRAMES / (ms / 1e3):.1f} mel frames/s, peak memory "
+              f"{peak:.2f} GB ({peak - held:.2f} GB above the {held:.2f} GB held)", flush=True)
+    print(f"train step [{card}] phase 8's plain step in this run: {plain8['ms']:.2f} ms, peak "
+          f"{plain8['peak_gb']:.2f} GB ({plain8['peak_gb'] - plain8['held_gb']:.2f} GB above "
+          "what was held)", flush=True)
+
+
+def has_matplotlib() -> tuple[bool, str]:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        return False, f"{type(e).__name__}: {e}"
+    return True, ""
+
+
+def latent_phase(card, dev, recipe, plain8):
+    """Phase 12: the mel VAE's remaining train and convert options.  (i)
+    card against CPU; (ii) step timings; (iii) `train --adv_cof 1` and
+    `train-fs` as children at once, then `convert --fs_mask ... --analyze`
+    and `convert --long_context --analyze` at once."""
+    kids = Children(recipe)
+    try:
+        latent_steps(card, dev, recipe, plain8, kids)
+    finally:
+        kids.kill_all()
+
+
+def latent_steps(card, dev, recipe, plain8, kids):
+    from dvc_tpu_torch.utils.wavio import read_wav
+    mels, run = os.path.join(recipe, "mels_no_trim"), os.path.join(recipe, "run")
+    run_adv = os.path.join(recipe, "run_adv")
+    pngs, why = has_matplotlib()
+    kids.start("train_adv", ["train", "--dataset_fp", mels, "--log_dir", run_adv,
+                             "--epochs", "2", "--batch-size", str(TRAIN_BATCH),
+                             "--samples_length", "64", "--report-interval", "2",
+                             "--seed", str(SEED), "--adv_cof", "1"])
+    kids.start("train_fs", ["train-fs", "--dataset_fp", mels, "--log_dir", run,
+                            "--fs_epochs", "10"])
+    latent_steps_against_cpu(card, dev, mels, run)
+
+    said, secs = kids.wait("train_adv")
+    losses = [float(ln.split("loss ")[1].split()[0]) for ln in said.splitlines()
+              if "Epoch" in ln]
+    have = sorted(os.listdir(os.path.join(run_adv, "checkpoints")))
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+          f"train --adv_cof: losses {losses}: {said[-1500:]}")
+    check(have == [f"DisentangledVAE_VCTK_2{s}" for s in (".msgpack", ".opt.pth", ".pth")],
+          f"train --adv_cof wrote {have}")
+    tb = os.path.join(run_adv, "logs", "DisentangledVAE_VCTK")
+    events = b"".join(open(os.path.join(tb, f), "rb").read() for f in os.listdir(tb)) \
+        if os.path.isdir(tb) else b""
+    check(b"Loss\\Adversary CE" in events and b"Loss\\Adversary Acc" in events,
+          "train --adv_cof: no Adversary CE / Acc scalars in its TensorBoard log")
+    est = os.path.join(run_adv, "images", "estimation")
+    est_pngs = sorted(os.listdir(est)) if os.path.isdir(est) else []
+    if pngs:
+        check(len(est_pngs) == 10, f"train --adv_cof estimation PNGs: {est_pngs}")
+    print(f"train --adv_cof 1 [{card}]: child process {secs:.1f} s (start to exit, train-fs "
+          f"beside it), epoch losses {losses}; {', '.join(have)}; Adversary CE and Acc in "
+          f"its TensorBoard log; {len(est_pngs)} estimation PNGs", flush=True)
+    said, secs = kids.wait("train_fs")
+    fm = np.load(os.path.join(run, "feature_mask.npz"))
+    check(fm["mask"].shape == (32,) and np.isfinite(fm["mask"]).all()
+          and 0 <= float(fm["acc"]) <= 1, f"feature_mask.npz {fm['mask']} {fm['acc']}")
+    fs_said = [ln for ln in said.splitlines() if ln.startswith(("fs epoch 9", "speaker-"))]
+    print(f"train-fs [{card}]: child process {secs:.1f} s (start to exit); {fs_said}; "
+          f"feature_mask.npz acc {float(fm['acc']):.3f}", flush=True)
+
+    # (iii) the two converts at once, each with its analysis
+    jobs = {"convert_fs": (run, ("p226", "p227"), ["--fs_mask",
+                                                   os.path.join(run, "feature_mask.npz")]),
+            "convert_lc": (run_adv, ("p227", "p228"), ["--long_context"])}
+    for name, (log_dir, (src, trg), flags) in jobs.items():
+        kids.start(name, ["convert", "--dataset_fp", mels, "--log_dir", log_dir, "--src_spk",
+                          src, "--trg_spk", trg, "--num_utterances", "2", *flags, "--analyze"])
+    for name, (log_dir, (src, trg), flags) in jobs.items():
+        said, secs = kids.wait(name)
+        gen = os.path.join(log_dir, "generation")
+        pair_dir = os.path.join(gen, f"{src}_to_{trg}")
+        files = sorted(os.listdir(pair_dir))
+        wavs = [f for f in files if f.endswith(".wav")]
+        check(len(wavs) == 2, f"{name} wrote {files}")
+        for f in wavs:
+            w, sr = read_wav(os.path.join(pair_dir, f))
+            check(sr == 16000 and np.isfinite(w).all() and w.std() > 1e-3, f"{name}: {f}")
+        la = np.load(os.path.join(gen, "latent_analysis.npz"))
+        check(la["mus"].shape == la["stds"].shape == (ADV_SPEAKERS, 32)
+              and np.isfinite(la["mus"]).all() and np.isfinite(la["stds"]).all()
+              and list(la["speakers"]) == list(RECIPE_SPEAKERS),
+              f"{name} latent_analysis.npz {la['mus'].shape} {list(la['speakers'])}")
+        want = ["latent_analysis.npz"]
+        if "--fs_mask" in flags:
+            fsm = np.load(os.path.join(gen, "fs_mask.npz"))
+            check(fsm["binary_mask"][:4].all() and fsm["sigmoid_mask"].shape == (32,),
+                  f"{name} fs_mask.npz")
+            want.append("fs_mask.npz")
+        png = [f for f in files if f.endswith(".png")]
+        if pngs:
+            want += ["latent_analysis.png"] + (["fs_mask.png"] if "--fs_mask" in flags else [])
+            check(len(png) == 8, f"{name}: {len(png)} mel PNGs, 4 an utterance expected")
+        missing = [f for f in want if not os.path.exists(os.path.join(gen, f))]
+        check(not missing, f"{name} did not write {missing}")
+        print(f"{name} [{card}]: `convert {' '.join(flags[:1])} --analyze` child process "
+              f"{secs:.1f} s (the other convert beside it): {len(wavs)} Griffin-Lim wavs, "
+              f"{len(png)} mel PNGs, {', '.join(want)}", flush=True)
+    if not pngs:
+        print(f"PNGs [{card}]: skipped, matplotlib does not import on this host ({why})",
+              flush=True)
+
+    # (ii) alone on the card, after the children
+    latent_step_timings(card, dev, plain8)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -2089,7 +2414,7 @@ def main() -> int:
 
     # 8. the VAE training path; 9. the serving defaults ---------------------------
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
-    mel8, run8 = train_phase(card, dev, work.name)
+    mel8, run8, plain8 = train_phase(card, dev, work.name)
     phase_done(8)
     serve_phase(card, dev, mel8, run8)
     phase_done(9)
@@ -2099,9 +2424,13 @@ def main() -> int:
     recipe_phase(card, dev, recipe.name)
     phase_done(10)
     vocoder_phase(card, dev, recipe.name, mel8, run8, b_main, f_main)
+    phase_done(11)
+
+    # 12. the mel VAE's remaining train and convert options, on phase 10's run
+    latent_phase(card, dev, recipe.name, plain8)
     recipe.cleanup()
     work.cleanup()
-    phase_done(11)
+    phase_done(12)
 
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's

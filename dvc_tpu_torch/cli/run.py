@@ -1,5 +1,5 @@
-"""CLI of the port: preprocess / train / convert / eval-mcd / serve / vocode
-/ train-vocoder.
+"""CLI of the port: preprocess / train / train-fs / convert / eval-mcd / serve
+/ vocode / train-vocoder.
 
 Same flags and defaults as dvc_tpu's commands (dvc_tpu/cli/run.py), plus
 ``--device {cuda,cpu}`` (default cuda; cuda without a card is an error).
@@ -8,17 +8,22 @@ The vocoder is Griffin-Lim by default (``--gl_iters``, 32); a bare
 kernel on cuda); ``--vocoder istft --vocoder_ckpt`` the iSTFT vocoder;
 ``--vocoder none`` returns mels.  ``--profile_transfer`` converts or serves
 with the model-free DSP route.  ``train-vocoder`` trains the WaveNet (or,
-with ``--arch istft``, the iSTFT vocoder) on a directory of wavs.  The
-WORLD route, orbax checkpoints, ``eval-mcd --analysis device``,
-``--analyze``, ``--long_context`` and ``--adv_cof`` are not ported yet and
-exit with a message; dvc_tpu's other commands (train-fs, the speaker
+with ``--arch istft``, the iSTFT vocoder) on a directory of wavs.
+``train --adv_cof`` adds the adversarial content regularizer
+(``--adv_mode confusion|grl``); ``train-fs`` trains the FeatureSelection
+mask that ``--fs_mask`` reads; ``convert --long_context`` encodes whole
+utterances, and ``convert --analyze`` writes the latent analysis.  The
+WORLD route, orbax checkpoints and ``eval-mcd --analysis device`` are not
+ported yet and exit with a message; dvc_tpu's other commands (the speaker
 encoder's, AutoVC's) are not here yet.
 
 Usage (the verify recipe, then serving):
   python -m dvc_tpu_torch.cli.run preprocess <datasets_root> -o <mel_dir> -d VCTK [--no_trim]
-  python -m dvc_tpu_torch.cli.run train --dataset_fp <mel_dir> --log_dir <run>
+  python -m dvc_tpu_torch.cli.run train --dataset_fp <mel_dir> --log_dir <run> [--adv_cof 1]
   python -m dvc_tpu_torch.cli.run convert --dataset_fp <mel_dir> --log_dir <run> \\
-      --src_spk A --trg_spk B
+      --src_spk A --trg_spk B [--long_context] [--analyze]
+  python -m dvc_tpu_torch.cli.run train-fs --dataset_fp <mel_dir> --log_dir <run>
+  python -m dvc_tpu_torch.cli.run convert ... --fs_mask <run>/feature_mask.npz --analyze
   python -m dvc_tpu_torch.cli.run eval-mcd --src_dir <wavs> --cvt_dir <wavs>
   python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --log_dir <run>
   python -m dvc_tpu_torch.cli.run serve --dataset_fp <mel_dir> --profile_transfer
@@ -30,6 +35,7 @@ Usage (the verify recipe, then serving):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -134,9 +140,10 @@ def _make_cli_vocoder(args, cfg):
 
 
 def _load_fs_mask(args, cfg):
-    """--fs_mask feature_mask.npz -> binary swap mask, or None."""
+    """--fs_mask feature_mask.npz -> (raw sigmoid mask, binary swap mask), or
+    (None, None) without the flag."""
     if not args.fs_mask:
-        return None
+        return None, None
     import numpy as np
 
     from dvc_tpu_torch.convert.conversion import binarize_fs_mask
@@ -149,7 +156,7 @@ def _load_fs_mask(args, cfg):
                                top_k=args.fs_top_k)
     print(f"FS-masked swap: {int(fs_mask.sum())}/{len(fs_mask)} dims "
           f"{np.where(fs_mask > 0)[0].tolist()}")
-    return fs_mask
+    return raw, fs_mask
 
 
 def cmd_preprocess(args) -> int:
@@ -171,11 +178,17 @@ def cmd_train(args) -> int:
         raise SystemExit(f"{', '.join(bad)}: {NOT_PORTED}")
     dataset = PairedMelDataset(args.dataset_fp, samples_length=args.samples_length,
                                seed=args.seed)
+    if cfg.loss.adv_cof > 0:
+        # the adversary's classifier is as wide as the corpus has speakers
+        cfg = cfg.replace(loss=dataclasses.replace(
+            cfg.loss, adv_speakers=len(dataset.speaker_ids)))
     os.makedirs(args.log_dir, exist_ok=True)
     with open(os.path.join(args.log_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
     trainer = Trainer(cfg, checkpoints_path=os.path.join(args.log_dir, "checkpoints"),
-                      logs_path=os.path.join(args.log_dir, "logs"), device=args.device)
+                      logs_path=os.path.join(args.log_dir, "logs"),
+                      estimation_dir=os.path.join(args.log_dir, "images", "estimation"),
+                      device=args.device)
     try:
         trainer.run_training(dataset, args.epochs, report_interval=args.report_interval,
                              reload_model=not args.do_not_resume)
@@ -216,7 +229,7 @@ def cmd_serve(args) -> int:
                        f"DSP route, device {args.device}")
         return 0
     vocoder = _make_cli_vocoder(args, cfg)  # a bad vocoder choice exits before any load
-    fs_mask = _load_fs_mask(args, cfg)
+    _, fs_mask = _load_fs_mask(args, cfg)
     service = ConversionService(cfg, _load_model(args, cfg), args.dataset_fp, vocoder,
                                 max_wait_ms=args.max_wait_ms, fs_mask=fs_mask,
                                 device=args.device)
@@ -228,27 +241,100 @@ def cmd_serve(args) -> int:
 def cmd_convert(args) -> int:
     from dvc_tpu_torch.convert.conversion import VoiceConverter
     from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
-    for flag in ("long_context", "analyze"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is {NOT_PORTED}")
     cfg = _config_from_args(args)
     device = resolve_device(args.device)
     model = None
     if args.profile_transfer:
         if args.fs_mask:
             raise SystemExit("--profile_transfer is model-free; --fs_mask does not apply")
+        if args.analyze:
+            raise SystemExit("--analyze needs a trained model; drop it or "
+                             "drop --profile_transfer")
     else:
         use_exact_float32()  # the VAE is served in float32, never TF32
     vocoder = _make_cli_vocoder(args, cfg)  # a bad vocoder choice exits before any load
     if not args.profile_transfer:
         model = _load_model(args, cfg).to(device).eval()
-    converter = VoiceConverter(cfg, model, seed=args.seed, fs_mask=_load_fs_mask(args, cfg),
-                               profile_transfer=args.profile_transfer)
+    raw, fs_mask = _load_fs_mask(args, cfg)
+    converter = VoiceConverter(cfg, model, seed=args.seed, long_context=args.long_context,
+                               fs_mask=fs_mask, profile_transfer=args.profile_transfer)
+    gen_dir = os.path.join(args.log_dir, "generation")
     results = converter.convert_speaker_pair(
-        args.dataset_fp, args.src_spk, args.trg_spk,
-        os.path.join(args.log_dir, "generation"),
+        args.dataset_fp, args.src_spk, args.trg_spk, gen_dir,
         num_utterances=args.num_utterances, vocoder=vocoder)
     print(f"converted {len(results)} utterances {args.src_spk} -> {args.trg_spk}")
+    if args.analyze:
+        _analyze(args, cfg, model, gen_dir, raw, fs_mask)
+    return 0
+
+
+def _analyze(args, cfg, model, gen_dir, raw, fs_mask) -> None:
+    """The latent-analysis artifacts (dvc_tpu/cli/run.py:204-242; reference
+    model/plot.py:23-55): per speaker directory, the mean and population std
+    of [style_mu, content_mu] over the chunks of up to 16 sorted
+    utterances, as latent_analysis.png and .npz; with --fs_mask, the mask as
+    fs_mask.png and fs_mask.npz (sigmoid_mask, binary_mask)."""
+    from glob import glob
+
+    import numpy as np
+    import torch
+
+    from dvc_tpu_torch.ops.chunk import chunk_mel
+    from dvc_tpu_torch.utils.plotting import plot_fs_mask, plot_latent_analysis
+    dev = next(model.parameters()).device
+    mus, stds, spk_ids = [], [], []
+    for spk_dir in sorted(glob(os.path.join(args.dataset_fp, "*"))):
+        fps = sorted(glob(os.path.join(spk_dir, "*.npy")))[:16]
+        if not os.path.isdir(spk_dir) or not fps:
+            continue
+        chunks = torch.cat([chunk_mel(torch.from_numpy(np.load(fp).astype(np.float32)).to(dev),
+                                      cfg.vae.frames) for fp in fps])
+        with torch.inference_mode():
+            smu, _, cmu, _ = model.encode(chunks)
+        lat = torch.cat([smu, cmu], -1).cpu().numpy()
+        mus.append(lat.mean(0))
+        stds.append(lat.std(0))
+        spk_ids.append(os.path.basename(spk_dir))
+    os.makedirs(gen_dir, exist_ok=True)
+    plot_latent_analysis(np.stack(mus), np.stack(stds), spk_ids,
+                         os.path.join(gen_dir, "latent_analysis.png"),
+                         os.path.join(gen_dir, "latent_analysis.npz"))
+    if fs_mask is not None:
+        plot_fs_mask(raw, os.path.join(gen_dir, "fs_mask.png"), args.fs_threshold,
+                     cfg.vae.speaker_size)
+        np.savez(os.path.join(gen_dir, "fs_mask.npz"), sigmoid_mask=raw, binary_mask=fs_mask)
+    print(f"latent analysis artifacts -> {gen_dir}")
+
+
+def cmd_train_fs(args) -> int:
+    """Feature-selection training on the frozen VAE's latents (dvc_tpu's
+    train-fs, dvc_tpu/cli/run.py:490-524): encode the corpus in unshuffled
+    batches, train, write <log_dir>/feature_mask.npz (mask, acc)."""
+    import numpy as np
+
+    from dvc_tpu_torch.data.dataset import PairedMelDataset
+    from dvc_tpu_torch.train.feature_selection_trainer import FeatureSelectionTrainer
+    from dvc_tpu_torch.train.trainer import Trainer
+    cfg = _config_from_args(args)
+    trainer = Trainer(cfg, checkpoints_path=os.path.join(args.log_dir, "checkpoints"),
+                      device=args.device)
+    epoch = trainer.load_last()
+    print(f"loaded VAE checkpoint at epoch {epoch - 1}")
+    ds = PairedMelDataset(args.dataset_fp, samples_length=args.samples_length)
+    fs_trainer = FeatureSelectionTrainer(cfg.vae.latent_dim, num_spk=len(ds.speaker_ids),
+                                         device=args.device)
+    latents, labels = [], []
+    for x1, _x2, spk in ds.batches(min(cfg.train.batch_size, max(1, len(ds))),
+                                   shuffle=False):
+        latents.append(fs_trainer.encode_latents(trainer.model, x1))
+        labels.append(spk)
+    latents = np.concatenate(latents)
+    last = fs_trainer.train(latents, np.concatenate(labels), epochs=args.fs_epochs)
+    mask = fs_trainer.feature_mask(latents)
+    out = os.path.join(args.log_dir, "feature_mask.npz")
+    np.savez(out, mask=mask, acc=last.get("acc", 0.0))
+    print(f"speaker-discriminative dims (mask>0.5): "
+          f"{np.where(mask > 0.5)[0].tolist()} -> {out}")
     return 0
 
 
@@ -389,18 +475,27 @@ def build_parser() -> argparse.ArgumentParser:
     _add_model_args(p)
     p.set_defaults(fn=cmd_train)
 
+    p = sub.add_parser("train-fs")
+    _add_model_args(p)
+    p.add_argument("--fs_epochs", type=int, default=10)
+    p.set_defaults(fn=cmd_train_fs)
+
     p = sub.add_parser("convert")
     _add_model_args(p)
     p.add_argument("--src_spk", default="VCTK-Corpus_wav16_p225")
     p.add_argument("--trg_spk", default="VCTK-Corpus_wav16_p226")
     p.add_argument("--num_utterances", type=int, default=2)
     _add_vocoder_args(p)
-    p.add_argument("--long_context", action="store_true")
+    p.add_argument("--long_context", action="store_true",
+                   help="encode whole utterances (the conv stack and biLSTM over "
+                        "all frames) instead of independent 64-frame chunks")
     _add_fs_args(p)
     p.add_argument("--profile_transfer", action="store_true",
                    help="model-free DSP conversion: shift the source mel by the "
                         "difference of the speakers' mean profiles (no checkpoint)")
-    p.add_argument("--analyze", action="store_true")
+    p.add_argument("--analyze", action="store_true",
+                   help="write the per-speaker latent analysis (and the FS mask "
+                        "with --fs_mask) under <log_dir>/generation")
     p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser("vocode")

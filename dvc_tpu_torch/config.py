@@ -4,9 +4,8 @@ A copy of dvc_tpu/config.py's AudioConfig, VAEConfig, LossConfig,
 TrainConfig, VocoderConfig, ISTFTVocoderConfig and Config (the port imports
 nothing of dvc_tpu), cut to the fields the port reads; names and defaults are
 dvc_tpu's.  TrainConfig has no ``donate_state``: there is no jit to donate
-to.  ``remat``, ``checkpoint_format="orbax"`` and LossConfig's ``adv_*``
-fields are kept so a dvc_tpu config reads the same, but the trainer refuses
-them as not yet ported.
+to.  ``checkpoint_format="orbax"`` is kept so a dvc_tpu config reads the
+same, but the trainer refuses it as not yet ported.
 """
 
 from __future__ import annotations
@@ -83,8 +82,8 @@ class LossConfig:
     kl_cof: float = 10.0
     style_cof: float = 0.1       # computed/logged but NOT in the total (parity quirk)
     beta_cof: float = 0.1
-    adv_cof: float = 0.0         # > 0: the adversarial regularizer, not yet ported
-    adv_speakers: int = 0
+    adv_cof: float = 0.0         # > 0: the adversarial content regularizer
+    adv_speakers: int = 0        # its classifier's width, the corpus speaker count
     adv_lr: float = 1e-3
     adv_mode: str = "confusion"
 
@@ -103,7 +102,7 @@ class TrainConfig:
     # float32 either way, as dvc_tpu's does (its layers promote bf16 inputs
     # with float32 parameters back to float32)
     compute_dtype: str = "bfloat16"
-    remat: bool = False               # not yet ported
+    remat: bool = False               # recompute the pair forward in the backward
     checkpoint_format: str = "msgpack"  # .msgpack beside .pth; "orbax" not yet ported
 
 

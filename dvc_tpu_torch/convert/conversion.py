@@ -40,7 +40,18 @@ def _convert_chunks(model: DisentangledVAE, src_chunks: torch.Tensor,
     elsewhere (conversion.py:58-95)."""
     src_style_mu, _, src_content_mu, _ = model.encode(src_chunks)
     trg_style_mu, _, trg_content_mu, _ = model.encode(trg_chunks)
-    n = src_chunks.shape[0]
+    return swap_decode(model, src_style_mu, src_content_mu, trg_style_mu,
+                       trg_content_mu, mask)
+
+
+@torch.inference_mode()
+def swap_decode(model: DisentangledVAE, src_style_mu: torch.Tensor,
+                src_content_mu: torch.Tensor, trg_style_mu: torch.Tensor,
+                trg_content_mu: torch.Tensor, mask: torch.Tensor | None = None):
+    """Per-chunk posterior means -> (recons, converted), both (80, Ns*F):
+    the latent swap (style = mean over chunks), decode, the postnet on the
+    conversion, clamped to [0, 1], and the chunks joined on time."""
+    n = src_content_mu.shape[0]
     src_style = src_style_mu.mean(0, keepdim=True).expand(n, -1)
     source_z = torch.cat([src_style, src_content_mu], -1)
     if mask is None:
@@ -121,8 +132,8 @@ class VoiceConverter:
     target utterance on any filesystem (dvc_tpu globs them unsorted).
     ``profile_transfer`` is the model-free DSP conversion
     (profile_transfer_mel between the speakers' mean profiles; ``model`` may
-    be None).  The whole-utterance ``long_context`` encoder and the mel PNGs
-    are not ported yet."""
+    be None); ``long_context`` encodes each utterance whole
+    (models/long_context.py) instead of as independent 64-frame chunks."""
 
     cfg: Config
     model: DisentangledVAE | None
@@ -133,11 +144,15 @@ class VoiceConverter:
 
     def convert_speaker_pair(self, dataset_fp: str, src_spk: str, trg_spk: str,
                              generation_dir: str, num_utterances: int = 2,
-                             vocoder=None):
+                             vocoder=None, save_png: bool = True):
         """Returns a list of (utterance_id, recons_mel, converted_mel[,
-        waveform]) tuples; waveforms are also written as wavs."""
-        if self.long_context:
-            raise NotImplementedError("--long_context is not yet ported — see ROADMAP.md")
+        waveform]) tuples; waveforms are also written as wavs, and with
+        ``save_png`` four mel PNGs an utterance."""
+        if self.long_context and self.fs_mask is not None:
+            raise ValueError(
+                "--fs_mask is not supported with --long_context "
+                "(the whole-utterance encoder has its own latent "
+                "assembly); drop one of the two flags")
         rng = np.random.RandomState(self.seed)
         save_dir = os.path.join(generation_dir, f"{src_spk}_to_{trg_spk}")
         os.makedirs(save_dir, exist_ok=True)
@@ -151,7 +166,7 @@ class VoiceConverter:
             raise FileNotFoundError(
                 f"no mel .npy files for target speaker {trg_spk!r} under {dataset_fp}")
         if self.profile_transfer:
-            if self.fs_mask is not None:
+            if self.fs_mask is not None or self.long_context:
                 raise ValueError(
                     "--profile_transfer is a model-free DSP conversion; it "
                     "cannot be combined with --fs_mask or --long_context")
@@ -168,9 +183,16 @@ class VoiceConverter:
                 # recons slot = the source itself: there is no autoencoder
                 recons = source_mel
                 converted = profile_transfer_mel(source_mel, src_prof, trg_prof)
+            elif self.long_context:
+                from dvc_tpu_torch.models.long_context import convert_mel_long_context
+                recons, converted = convert_mel_long_context(self.model, source_mel,
+                                                             target_mel, self.cfg.vae.frames)
             else:
                 recons, converted = convert_mel(self.model, source_mel, target_mel,
                                                 self.cfg.vae.frames, fs_mask=self.fs_mask)
+            if save_png:
+                self._save_pngs(save_dir, src_spk, trg_spk, utt_id, source_mel, recons,
+                                converted)
             results.append([utt_id, recons, converted])
 
         if vocoder is not None:
@@ -183,3 +205,22 @@ class VoiceConverter:
                     wav, self.cfg.audio.sample_rate)
                 entry.append(wav)
         return [tuple(r) for r in results]
+
+    @staticmethod
+    def _save_pngs(save_dir, src_spk, trg_spk, utt_id, source, recons, converted):
+        """dvc_tpu's four PNGs an utterance (conversion.py:306-327): the
+        original, the conversion, the reconstruction and the spectral
+        detail source * recons / converted."""
+        from dvc_tpu_torch.utils.plotting import save_mel_png
+        save_mel_png(source, os.path.join(save_dir, f"original_{src_spk}_{utt_id}.png"),
+                     f"original_{src_spk}_{utt_id}")
+        save_mel_png(converted, os.path.join(
+            save_dir, f"convert_{src_spk}_{trg_spk}_{utt_id}.png"),
+            f"convert_{src_spk}_{trg_spk}_{utt_id}")
+        save_mel_png(recons, os.path.join(save_dir, f"recons_{src_spk}_{utt_id}.png"),
+                     f"reconstruct_{src_spk}_{utt_id}")
+        t = min(source.shape[1], recons.shape[1])
+        detail = source[:, :t] * (recons[:, :t] / np.maximum(converted[:, :t], 1e-6))
+        save_mel_png(detail, os.path.join(
+            save_dir, f"spectral_detail_{src_spk}_{trg_spk}_{utt_id}.png"),
+            f"spectral_detail_{src_spk}_{trg_spk}_{utt_id}")

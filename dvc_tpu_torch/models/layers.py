@@ -14,12 +14,15 @@ ConvNorm takes (B, C, T) and LinearNorm acts on the last axis.
   dvc_tpu's (layers.py:154-157).  Momentum 0.1 is flax's 0.9.
 - LSTM: ``nn.LSTM`` (batch_first); its gate order i, f, g, o is the order
   dvc_tpu's LSTM keeps (layers.py:190-223), so weights carry over as they are.
-- flax_init_: flax's default initializers for the vocoders trained in the
-  port (lecun-normal conv kernels, zero biases).
+- flax_init_: flax's default initializers for the modules the port trains
+  from scratch (lecun-normal kernels, zero biases).
+- frozen_running_stats: BatchNorms that normalize as in train mode but keep
+  their running statistics, for the recomputation of a checkpointed forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -27,21 +30,40 @@ from torch import nn
 
 
 @torch.no_grad()
-def flax_init_(module: nn.Module) -> nn.Module:
-    """Give every ``nn.Conv1d`` below ``module`` flax's ``nn.Conv`` default
-    init, in distribution: lecun_normal (a normal truncated at two standard
-    deviations, scaled to variance 1/fan_in) and a zero bias.  LayerNorms
-    already start at ones and zeros, as flax's; other layers are left as
-    they are.  Draws from torch's global RNG."""
+def flax_init_(module: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
+    """Give every ``nn.Conv1d`` and ``nn.Linear`` below ``module`` flax's
+    ``nn.Conv`` / ``nn.Dense`` default init, in distribution: lecun_normal
+    (a normal truncated at two standard deviations, scaled to variance
+    1/fan_in) and a zero bias.  LayerNorms already start at ones and zeros,
+    as flax's; other layers are left as they are.  Draws from
+    ``generator``, or from torch's global RNG when it is None."""
     for m in module.modules():
-        if isinstance(m, nn.Conv1d):
-            fan_in = m.weight.shape[1] * m.weight.shape[2]
+        if isinstance(m, (nn.Conv1d, nn.Linear)):
+            fan_in = m.weight[0].numel()  # in (Linear), in * k (Conv1d)
             # flax divides by the std of a unit normal truncated at +-2
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
     return module
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """While open, every BatchNorm below ``module`` leaves its running
+    statistics (and batch count) as they are; train mode still normalizes
+    by the batch's statistics.  The recomputation of a checkpointed forward
+    runs under it, so a remat step moves the statistics once, as dvc_tpu's
+    pure ``jax.checkpoint`` does."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class LinearNorm(nn.Module):
@@ -86,12 +108,14 @@ class BatchNorm(nn.BatchNorm1d):
     variances times n/(n-1), n = (B/groups)*T.  Calling
     ``nn.BatchNorm1d`` once on the 2B batch (one set of statistics), or
     once per half (two moving-average updates), would each differ from
-    dvc_tpu's pair-fused step.  groups = 1 is torch's own train-mode rule."""
+    dvc_tpu's pair-fused step.  groups = 1 is torch's own train-mode rule.
+    ``update_stats`` False (set by frozen_running_stats) skips the update."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
                  groups: int = 1):
         super().__init__(channels, eps=eps, momentum=1.0 - momentum)
         self.groups = groups
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -105,6 +129,8 @@ class BatchNorm(nn.BatchNorm1d):
         var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, c, t).to(x.dtype)
         y = y * self.weight[:, None] + self.bias[:, None]
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             n = (b // g) * t
             m = self.momentum

@@ -1,5 +1,5 @@
 """Training runtime of the disentangled VAE (port of dvc_tpu/train/trainer.py:50-453,
-without its mesh, adversary and Orbax branches).
+without its mesh and Orbax branches).
 
 One train step is forward(pair) + loss + backward + Adam, eager on the
 device: cuDNN convolutions and LSTMs, cuBLAS matmuls, in exact float32
@@ -7,26 +7,37 @@ device: cuDNN convolutions and LSTMs, cuBLAS matmuls, in exact float32
 run_training (reference model/variational_base_vae.py:156-203): an
 epoch-indexed loop, per-epoch re-pairing of utterances, TensorBoard scalars
 with the reference's names, a checkpoint every ``report_interval`` epochs
-named ``DisentangledVAE_VCTK_{epoch}``, and resume from the newest one.
+named ``DisentangledVAE_VCTK_{epoch}``, and resume from the newest one;
+with ``estimation_dir``, original and reconstructed mel PNGs after each
+save.
 
 ``compute_dtype="bfloat16"`` (the default) rounds the two input batches to
 bf16 and computes in float32, as dvc_tpu does: its model is built with no
 dtype, so every flax layer promotes the bf16 input with its float32
 parameters back to float32 (dvc_tpu/train/trainer.py:53,81-87).  The loss
 is taken against the unrounded inputs.
+
+``TrainConfig.remat`` recomputes the pair forward in the backward pass
+(``torch.utils.checkpoint`` over the region dvc_tpu wraps in
+``jax.checkpoint``); ``LossConfig.adv_cof`` > 0 trains the speaker
+adversary of train/adversarial.py beside the VAE.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dvc_tpu_torch.config import Config
 from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+from dvc_tpu_torch.models.layers import frozen_running_stats
 from dvc_tpu_torch.train import checkpoint as ckpt_lib
 from dvc_tpu_torch.train.losses import LossTerms, gvae_pair_loss
 from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
@@ -37,12 +48,8 @@ NOT_PORTED = "not yet ported — see ROADMAP.md"
 def unported_settings(cfg: Config) -> list[str]:
     """The settings of ``cfg`` the port does not train with yet."""
     out = []
-    if cfg.train.remat:
-        out.append("remat=True")
     if cfg.train.checkpoint_format == "orbax":
         out.append('checkpoint_format="orbax"')
-    if cfg.loss.adv_cof > 0:
-        out.append("adv_cof > 0 (the adversarial regularizer)")
     if cfg.train.compute_dtype not in ("bfloat16", "float32"):
         out.append(f"compute_dtype={cfg.train.compute_dtype!r}")
     return out
@@ -65,24 +72,64 @@ def make_optimizer(model: torch.nn.Module, learning_rate: float) -> torch.optim.
                             betas=(0.9, 0.999), eps=1e-8)
 
 
+def draw_eps(model: DisentangledVAE, batch: int, generator: torch.Generator | None,
+             device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The train forward's standard-normal draws, content1, content2 and
+    style, drawn as the forward draws them: the same values it would draw
+    from ``generator`` (the global RNG when None)."""
+    c = model.cfg
+    return tuple(torch.randn((batch, n), generator=generator, device=device)
+                 for n in (c.content_size, c.content_size, c.speaker_size))
+
+
+def make_pair_forward(model: DisentangledVAE, compute_dtype: str = "float32",
+                      remat: bool = False) -> Callable:
+    """Build forward(x1, x2, generator=None, eps=None) -> the ten outputs of
+    the pairwise train forward, on inputs rounded to bf16 when
+    ``compute_dtype`` is "bfloat16".
+
+    ``remat``: the forward runs under a non-reentrant
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass.  The
+    noise is drawn before the checkpointed region and passed in (checkpoint
+    restores the global RNGs, not a ``torch.Generator``), and the
+    recomputation leaves the BatchNorm running statistics alone, so they
+    move once a step, as with dvc_tpu's pure ``jax.checkpoint``."""
+    round_bf16 = compute_dtype == "bfloat16"
+
+    def recompute_context():
+        return contextlib.nullcontext(), frozen_running_stats(model)
+
+    def forward(x1: torch.Tensor, x2: torch.Tensor,
+                generator: torch.Generator | None = None, eps=None):
+        if round_bf16:
+            x1 = x1.to(torch.bfloat16).to(torch.float32)
+            x2 = x2.to(torch.bfloat16).to(torch.float32)
+        if not remat:
+            return model(x1, x2, generator=generator, eps=eps)
+        if eps is None:
+            eps = draw_eps(model, x1.shape[0], generator, x1.device)
+        # the eps drawn here are the only randomness of the region
+        return checkpoint(lambda a, b, e: model(a, b, eps=e), x1, x2, tuple(eps),
+                          use_reentrant=False, preserve_rng_state=False,
+                          context_fn=recompute_context)
+
+    return forward
+
+
 def make_train_step(model: DisentangledVAE, optimizer: torch.optim.Optimizer,
                     mse_cof: float = 10.0, kl_cof: float = 10.0,
-                    compute_dtype: str = "float32") -> Callable:
+                    compute_dtype: str = "float32", remat: bool = False) -> Callable:
     """Build step(x1, x2, generator=None, eps=None) -> LossTerms (detached).
 
     The model must be in train mode.  After a step each parameter's
     ``.grad`` holds the gradient the optimizer applied; the BatchNorm
     running statistics have moved as dvc_tpu's ``mutable=["batch_stats"]``
-    returns them."""
-    round_bf16 = compute_dtype == "bfloat16"
+    returns them.  ``remat``: see make_pair_forward."""
+    forward = make_pair_forward(model, compute_dtype, remat)
 
     def step(x1: torch.Tensor, x2: torch.Tensor,
              generator: torch.Generator | None = None, eps=None) -> LossTerms:
-        xin1, xin2 = x1, x2
-        if round_bf16:
-            xin1 = x1.to(torch.bfloat16).to(torch.float32)
-            xin2 = x2.to(torch.bfloat16).to(torch.float32)
-        outs = model(xin1, xin2, generator=generator, eps=eps)
+        outs = forward(x1, x2, generator, eps)
         terms = gvae_pair_loss(x1, x2, *outs, mse_cof=mse_cof, kl_cof=kl_cof)
         optimizer.zero_grad(set_to_none=True)
         terms.total.backward()
@@ -124,6 +171,7 @@ class Trainer:
     cfg: Config
     checkpoints_path: str = ""
     logs_path: str = ""
+    estimation_dir: str = ""
     run_name: str = ckpt_lib.RUN_NAME
     device: str | torch.device = "cuda"
     step: int = field(default=0, init=False)
@@ -134,11 +182,30 @@ class Trainer:
             raise NotImplementedError(f"{', '.join(bad)}: {NOT_PORTED}")
         self.device = resolve_device(self.device)
         use_exact_float32()  # float32 training, never TF32
+        train, loss = self.cfg.train, self.cfg.loss
         self.model = create_model(self.cfg, self.device)
-        self.optimizer = make_optimizer(self.model, self.cfg.train.learning_rate)
-        self.train_step = make_train_step(
-            self.model, self.optimizer, mse_cof=self.cfg.loss.mse_cof,
-            kl_cof=self.cfg.loss.kl_cof, compute_dtype=self.cfg.train.compute_dtype)
+        self.optimizer = make_optimizer(self.model, train.learning_rate)
+        # the adversary (adv_cof > 0) lives beside the VAE, outside its
+        # checkpoints; after a resume it starts again from its seed
+        self.adversary = self.adv_optimizer = None
+        self.adv_metrics: dict[str, torch.Tensor] = {}  # the last step's
+        if loss.adv_cof > 0:
+            if loss.adv_speakers <= 0:
+                raise ValueError("LossConfig.adv_cof > 0 requires "
+                                 "adv_speakers (the corpus speaker count)")
+            from dvc_tpu_torch.train.adversarial import SpeakerAdversary, make_adv_train_step
+            self.adversary = SpeakerAdversary(
+                self.cfg.vae.content_size, loss.adv_speakers,
+                generator=torch.Generator().manual_seed(train.seed + 2)).to(self.device)
+            self.adv_optimizer = make_optimizer(self.adversary, loss.adv_lr)
+            self.train_step = make_adv_train_step(
+                self.model, self.optimizer, self.adversary, self.adv_optimizer,
+                mse_cof=loss.mse_cof, kl_cof=loss.kl_cof, adv_cof=loss.adv_cof,
+                mode=loss.adv_mode, compute_dtype=train.compute_dtype, remat=train.remat)
+        else:
+            self.train_step = make_train_step(
+                self.model, self.optimizer, mse_cof=loss.mse_cof, kl_cof=loss.kl_cof,
+                compute_dtype=train.compute_dtype, remat=train.remat)
         self._gen = torch.Generator(device=self.device)
         self._writer = None
         self._clamp_logged = False
@@ -173,10 +240,16 @@ class Trainer:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             self.device, non_blocking=True)
 
-    def step_on(self, x1: torch.Tensor, x2: torch.Tensor) -> LossTerms:
-        """One train step on device batches, with this step's noise."""
+    def step_on(self, x1: torch.Tensor, x2: torch.Tensor,
+                spk: torch.Tensor | None = None) -> LossTerms:
+        """One train step on device batches, with this step's noise.  With
+        the adversary, ``spk`` holds the speaker ids and the step's
+        {"adv_ce", "adv_acc"} land in ``adv_metrics``."""
         self._gen.manual_seed(_step_seed(self.cfg.train.seed + 1, self.step))
-        terms = self.train_step(x1, x2, generator=self._gen)
+        if self.adversary is None:
+            terms = self.train_step(x1, x2, generator=self._gen)
+        else:
+            terms, self.adv_metrics = self.train_step(x1, x2, spk, generator=self._gen)
         self.step += 1
         return terms
 
@@ -204,15 +277,16 @@ class Trainer:
         from dvc_tpu_torch.data.dataset import prefetch
 
         self.model.train()
-        totals = torch.zeros(len(LossTerms._fields), dtype=torch.float64,
-                             device=self.device)
+        keys = LossTerms._fields + (("adv_ce", "adv_acc") if self.adversary is not None else ())
+        totals = torch.zeros(len(keys), dtype=torch.float64, device=self.device)
         n_batches = 0
-        for x1, x2, _spk in prefetch(dataset.batches(self._effective_batch_size(dataset))):
-            terms = self.step_on(self._to_device(x1), self._to_device(x2))
-            totals += torch.stack(terms).to(torch.float64)
+        for x1, x2, spk in prefetch(dataset.batches(self._effective_batch_size(dataset))):
+            spk = torch.from_numpy(np.asarray(spk, np.int64)).to(self.device)
+            terms = self.step_on(self._to_device(x1), self._to_device(x2), spk)
+            totals += torch.stack([*terms, *self.adv_metrics.values()]).to(torch.float64)
             n_batches += 1
         dataset.shuffle_data()  # re-pair utterances (reference :96)
-        out = dict(zip(LossTerms._fields, totals.tolist()))
+        out = dict(zip(keys, totals.tolist()))
         out["n_batches"] = n_batches
         return out
 
@@ -241,8 +315,20 @@ class Trainer:
                 writer.add_scalar("Loss\\Z1 KL Loss", means["z1_kl"], epoch)
                 writer.add_scalar("Loss\\Z2 KL Loss", means["z2_kl"], epoch)
                 writer.add_scalar("Loss\\Z KL Style", means["z_style_kl"], epoch)
+                if "adv_ce" in means:  # the adversarial content regularizer
+                    writer.add_scalar("Loss\\Adversary CE", means["adv_ce"], epoch)
+                    writer.add_scalar("Loss\\Adversary Acc", means["adv_acc"], epoch)
             if self.checkpoints_path and epoch % report_interval == 0:
                 self.save(epoch)
+                # the reference also dumps reconstruction PNGs each interval
+                # (variational_base_vae.py:199-202); an optional artifact, so
+                # a failure is reported and training goes on, as in dvc_tpu
+                if self.estimation_dir:
+                    try:
+                        self.estimate_trained_model(dataset, self.estimation_dir,
+                                                    logging_func=logging_func)
+                    except Exception as e:
+                        logging_func(f"estimation dump failed: {type(e).__name__}: {e}")
         if writer is not None:
             writer.flush()
         return history
@@ -266,6 +352,45 @@ class Trainer:
         logging_func(f"====> Test recons loss: {out['mse_x1']:.4f} - "
                      f"VLB: {out['total']:.4f}")
         return out
+
+    def estimate_trained_model(self, dataset, estimation_dir: str, n_images: int = 5,
+                               logging_func=print) -> int:
+        """Reload the latest checkpoint, reconstruct the first unshuffled
+        batch in eval mode (z_style noise seeded 0, as ``evaluate``) and
+        write up to ``n_images`` pairs of PNGs, ``{epoch}_recons_mel_{i}.png``
+        (after the postnet) and ``{epoch}_original_mel_{i}.png`` (reference
+        estimate_trained_model, model/variational_base_vae.py:205-239).
+        Returns the checkpoint's epoch."""
+        from dvc_tpu_torch.utils.plotting import save_mel_png
+        epoch = self.load_last() - 1
+        os.makedirs(estimation_dir, exist_ok=True)
+        x1, x2, _ = next(iter(dataset.batches(self._effective_batch_size(dataset),
+                                              shuffle=False)))
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        self.model.eval()
+        try:
+            with torch.no_grad():
+                outs = self.model(self._to_device(x1), self._to_device(x2), generator=gen)
+        finally:
+            self.model.train()
+        recons_x1 = outs[2].cpu().numpy()
+        failures = 0
+        for i in range(min(n_images, len(x1))):
+            # one bad PNG (matplotlib backend, disk) must not stop the rest
+            try:
+                save_mel_png(recons_x1[i], os.path.join(
+                    estimation_dir, f"{epoch}_recons_mel_{i}.png"),
+                    "reconstructed mel spectrogram")
+                save_mel_png(x1[i], os.path.join(
+                    estimation_dir, f"{epoch}_original_mel_{i}.png"),
+                    "original mel spectrogram")
+            except Exception as e:
+                failures += 1
+                if failures == 1:
+                    logging_func(f"estimation png dump failed: {type(e).__name__}: {e}")
+        if failures > 1:
+            logging_func(f"estimation png dump: {failures} images failed")
+        return epoch
 
     def _get_writer(self):
         if self._writer is None and self.logs_path:

@@ -5,7 +5,9 @@ dicts, both ways, and the reference .pth helpers.
 ``istft_state_dict_from_jax`` take the JAX package's parameter trees as
 nested mappings of numpy arrays and return state dicts with the reference
 checkpoints' names (the iSTFT vocoder has no reference: its names are the
-port's modules'); ``vae_tree_from_state_dict``,
+port's modules; nor do ``feature_selection_state_dict_from_jax`` and
+``adversary_state_dict_from_jax``, whose flax Dense names are the port's
+Linear names); ``vae_tree_from_state_dict``,
 ``wavenet_tree_from_state_dict`` and ``istft_tree_from_state_dict`` go back,
 and ``optax_adam_from_torch`` / ``torch_adam_from_optax`` carry Adam's
 moments and step between torch and optax.  The map is
@@ -165,6 +167,23 @@ def vae_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict
             inv = {"conv": _conv1d_inv, "linear": _linear_inv, "lstm": _lstm_inv}[kind]
             _put(params, path, inv(sd, prefix))
     return params, stats
+
+
+def _dense_state_dict(params: Mapping[str, Any], names: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    for name in names:
+        _linear(sd, name, params[name])
+    return sd
+
+
+def feature_selection_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """dvc_tpu FeatureSelection params -> the port's FeatureSelection state dict."""
+    return _dense_state_dict(params, ("ln1", "ln2", "weight", "cls_linear", "prediction"))
+
+
+def adversary_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """dvc_tpu SpeakerAdversary params -> the port's SpeakerAdversary state dict."""
+    return _dense_state_dict(params, ("fc0", "fc1", "out"))
 
 
 _WAVENET_CONVS = ("conv", "conv1x1c", "conv1x1_skip", "conv1x1_out")

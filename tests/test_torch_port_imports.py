@@ -32,6 +32,9 @@ MODULES = [
     "dvc_tpu_torch.data.preprocess", "dvc_tpu_torch.ops.world", "dvc_tpu_torch.eval",
     "dvc_tpu_torch.eval.mcd", "dvc_tpu_torch.models.istft_vocoder",
     "dvc_tpu_torch.train.vocoder_trainer", "dvc_tpu_torch.train.istft_vocoder_trainer",
+    "dvc_tpu_torch.utils.plotting", "dvc_tpu_torch.models.feature_selection",
+    "dvc_tpu_torch.train.feature_selection_trainer", "dvc_tpu_torch.train.adversarial",
+    "dvc_tpu_torch.models.long_context",
 ]
 
 FORBIDDEN_SO = os.sep + os.path.join("dvc_tpu", "native") + os.sep

@@ -82,7 +82,11 @@ def test_verify_recipe_through_the_port_cli(tmp_path, small_widths, capsys):
     assert cli.main(["convert", *common, "--src_spk", "p225", "--trg_spk", "p226",
                      "--num_utterances", "2", "--gl_iters", "4"]) == 0
     gen = run / "generation" / "p225_to_p226"
-    assert sorted(os.listdir(gen)) == [f"convert_p225_to_p226_{u:03d}.wav" for u in range(2)]
+    # the wavs, and dvc_tpu's four mel PNGs an utterance
+    assert sorted(os.listdir(gen)) == sorted(
+        [f"convert_p225_to_p226_{u:03d}.wav" for u in range(2)]
+        + [f"{kind}_{u:03d}.png" for u in range(2) for kind in (
+            "original_p225", "convert_p225_p226", "recons_p225", "spectral_detail_p225_p226")])
     capsys.readouterr()
 
     # 5. eval-mcd: the converted wavs against their sources, and the sources

@@ -440,13 +440,14 @@ def test_trainer_epochs_and_clamp(tmp_path):
 def test_unported_settings_refused():
     cfg = tiny_config()
     assert unported_settings(cfg) == []
-    for kw, what in ((dict(remat=True), "remat"), (dict(checkpoint_format="orbax"), "orbax")):
-        bad = cfg.replace(train=dataclasses.replace(cfg.train, **kw))
-        with pytest.raises(NotImplementedError, match=f"{what}.*not yet ported"):
-            Trainer(bad, device="cpu")
-    bad = cfg.replace(loss=dataclasses.replace(cfg.loss, adv_cof=1.0))
-    with pytest.raises(NotImplementedError, match="adv_cof.*not yet ported"):
+    bad = cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_format="orbax"))
+    with pytest.raises(NotImplementedError, match="orbax.*not yet ported"):
         Trainer(bad, device="cpu")
+    # remat and the adversary are ported (test_torch_port_adversarial.py)
+    for ok in (cfg.replace(train=dataclasses.replace(cfg.train, remat=True)),
+               cfg.replace(loss=dataclasses.replace(cfg.loss, adv_cof=1.0, adv_speakers=2))):
+        assert unported_settings(ok) == []
+        Trainer(ok, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         Trainer(cfg, device="cuda")
 
@@ -485,6 +486,6 @@ def test_cli_train_then_convert(tmp_path, monkeypatch, capsys):
     for w in wavs:
         wav, sr = parse_wav(w.read_bytes())
         assert sr == 16000 and len(wav) > 0 and np.isfinite(wav).all()
-    for flags in (["--adv_cof", "1"], ["--checkpoint-format", "orbax"], ["--features", "mcc"]):
+    for flags in (["--checkpoint-format", "orbax"], ["--features", "mcc"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(["train", *common, *flags])

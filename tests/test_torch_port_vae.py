@@ -116,8 +116,9 @@ def test_binarize_fs_mask_and_profile_transfer():
 
 
 def test_voice_converter_pair(pair, tmp_path):
-    """Directory runner vs dvc_tpu's; the target dir holds one utterance,
-    since dvc_tpu globs target files unsorted."""
+    """Directory runner vs dvc_tpu's, chunked and with --long_context; the
+    target dir holds one utterance, since dvc_tpu globs target files
+    unsorted."""
     jm, variables, pm = pair
     rng = np.random.RandomState(5)
     for spk, n in (("p1", 3), ("p2", 1)):
@@ -125,17 +126,14 @@ def test_voice_converter_pair(pair, tmp_path):
         for i in range(n):
             np.save(tmp_path / spk / f"{spk}_{i:03d}_mel.npy",
                     rng.rand(80, 20 + 7 * i).astype(np.float32))
-    want = jconv.VoiceConverter(JaxConfig(vae=JaxVAEConfig(**SMALL)), jm, variables,
-                                seed=3).convert_speaker_pair(
-        str(tmp_path), "p1", "p2", str(tmp_path / "gen_jax"), 2, save_png=False)
-    got = conversion.VoiceConverter(Config(vae=VAEConfig(**SMALL)), pm,
-                                    seed=3).convert_speaker_pair(
-        str(tmp_path), "p1", "p2", str(tmp_path / "gen_port"), 2)
-    assert [w[0] for w in want] == [g[0] for g in got] == ["000", "001"]
-    for w, g in zip(want, got):
-        np.testing.assert_allclose(g[1], w[1], rtol=FULL_RTOL, atol=FULL_ATOL)
-        np.testing.assert_allclose(g[2], w[2], rtol=FULL_RTOL, atol=FULL_ATOL)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        conversion.VoiceConverter(Config(vae=VAEConfig(**SMALL)), pm,
-                                  long_context=True).convert_speaker_pair(
-            str(tmp_path), "p1", "p2", str(tmp_path / "gen_lc"), 1)
+    for long_context in (False, True):
+        want = jconv.VoiceConverter(JaxConfig(vae=JaxVAEConfig(**SMALL)), jm, variables,
+                                    seed=3, long_context=long_context).convert_speaker_pair(
+            str(tmp_path), "p1", "p2", str(tmp_path / "gen_jax"), 2, save_png=False)
+        got = conversion.VoiceConverter(Config(vae=VAEConfig(**SMALL)), pm, seed=3,
+                                        long_context=long_context).convert_speaker_pair(
+            str(tmp_path), "p1", "p2", str(tmp_path / "gen_port"), 2, save_png=False)
+        assert [w[0] for w in want] == [g[0] for g in got] == ["000", "001"]
+        for w, g in zip(want, got):
+            np.testing.assert_allclose(g[1], w[1], rtol=FULL_RTOL, atol=FULL_ATOL)
+            np.testing.assert_allclose(g[2], w[2], rtol=FULL_RTOL, atol=FULL_ATOL)
