@@ -153,9 +153,30 @@ Phases; any failure exits non-zero before a result line is printed:
             imports); (ii) then ms a step and peak memory at bench.py's
             batch of the plain, adversarial and remat steps, beside phase
             8's plain step.
+ 13. speaker the GE2E speaker encoder and the AutoVC baseline (no hand
+            kernel: cuDNN/cuBLAS, float32, TF32 off): (i) one GE2E step at
+            the full SpeakerEncoderConfig on a seeded (64, 10, 63, 80)
+            batch and one AutoVC step at the full AutoVCConfig, batch 8 x
+            64, on the card against the CPU in float32 and float64 (loss
+            terms 1e-5 relative, the similarity matrix 1e-5 of its max, each
+            gradient 1e-3 of its max in float64 and 0.1 in float32, the
+            similarity gradients 1e-8 absolute, pre-BN conv biases by their
+            share, running statistics 1e-5), the card's first GE2E update
+            against Adam's formula, an AutoVC step without the gradient
+            through the running statistics rejected, embed_utterance of a
+            phase 10 wav (1e-4); (iii) on a synthetic corpus of 64 speakers
+            (12 training and 4 held-out mels each) `train-speaker` 300 steps
+            at 64 x 10 on the resident pool and `train-autovc` with one-hot
+            codes on phase 10's mels as children at once, then `eval-eer`
+            of the trained and the initial weights on the held-out mels (the
+            trained EER lower), `embed` over phase 10's wavs and
+            `train-autovc --encoder_run_id` (2 epochs at batch 8 each, the
+            loss falling, checkpoints the port reads); (ii) then ms a step,
+            TFLOP/s against the float32 bound, peak memory and the idle
+            share of both steps.
 Each phase prints its seconds.  The lines before the last report the card
 (nvidia-smi name and power limit), timings and one JSON line of kernels
-(phases 8-12 add none); the last line is
+(phases 8-13 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -682,14 +703,27 @@ def step_against_cpu(cfg, dev):
     return term_err, grad_err, bias_share, stat_err, t_c.total.item()
 
 
-def vae_grad_errs(g_c, g_g) -> tuple[float, float]:
-    """(worst max |diff| over max |g| of the VAE's gradients, name -> CPU
+def vae_pre_bn_bias(name: str) -> bool:
+    return name.endswith("conv.bias") or (name.startswith("dec_modules")
+                                          and name.endswith(".0.bias"))
+
+
+def autovc_pre_bn_bias(name: str) -> bool:
+    """The decoder's and postnet's conv biases; the encoder's reach the
+    content term through the updated running statistics and are held like
+    any other gradient."""
+    return name.endswith("conv.bias") and not name.startswith("encoder.")
+
+
+def vae_grad_errs(g_c, g_g, pre_bn_bias=vae_pre_bn_bias) -> tuple[float, float]:
+    """(worst max |diff| over max |g| of a model's gradients, name -> CPU
     tensor, against the reference g_c; the worst share of a pre-BN conv
-    bias's gradient, exactly 0 in exact arithmetic, in its weight's)."""
+    bias's gradient, exactly 0 in exact arithmetic, in its weight's).
+    pre_bn_bias(name) picks those biases, the VAE's by default."""
     grad_err, bias_share = 0.0, 0.0
     for n, a in g_c.items():
         b = g_g[n]
-        if n.endswith("conv.bias") or (n.startswith("dec_modules") and n.endswith(".0.bias")):
+        if pre_bn_bias(n):
             w = g_c[n[:-len("bias")] + "weight"].abs().max().item()
             bias_share = max(bias_share, max(a.abs().max().item(), b.abs().max().item()) / w)
             continue
@@ -1956,6 +1990,402 @@ def latent_steps(card, dev, recipe, plain8, kids):
     latent_step_timings(card, dev, plain8)
 
 
+GE2E_SPEAKERS = 64      # phase 13 (iii): the synthetic GE2E corpus, one batch of speakers
+GE2E_TRAIN_UTTS, GE2E_HELD_UTTS = 12, 4  # mels a speaker for train-speaker, for eval-eer
+GE2E_STEPS = 300        # train-speaker's steps in the child ("a few hundred")
+AUTOVC_BATCH, AUTOVC_FRAMES = 8, 64  # train-autovc's default batch and crop
+SIM_RTOL = 1e-5         # phase 13 (i): the GE2E similarity matrix card against CPU, of
+                        # its max (tests/test_torch_port_ge2e.py's limit against dvc_tpu)
+SIM_GRAD_ATOL = 1e-8    # the two similarity gradients after the 0.01 scaling, held
+                        # absolutely: means of terms of size up to 1 that cancel (the
+                        # bias's exactly), tests/test_torch_port_ge2e.py's limit
+F32_STEP_GRAD_RTOL = 0.1  # the GE2E and AutoVC steps' float32 gradients card against
+                        # CPU, of each one's max: phase 12's float32 limit.  Float32
+                        # gradients through train-mode BatchNorms and long LSTM chains
+                        # can be ill-conditioned (phase 12), so float64 is the gate at
+                        # GRAD_RTOL and float32 is held to this and reported
+EMBED_CARD_ATOL = 1e-4  # embed_utterance card against CPU, of the unit-norm embedding
+
+
+def ge2e_profiles(n, rng):
+    """n distinct 3-bump spectral profiles (tools/quality_ge2e.py's): bump
+    centre triples drawn without replacement from a 16-point grid, so any
+    two speakers differ in at least one formant position."""
+    from itertools import combinations
+    grid = np.linspace(6, 74, 16)
+    triples = list(combinations(range(16), 3))
+    rng.shuffle(triples)
+    bins = np.arange(80)
+    profs = []
+    for t3 in triples[:n]:
+        prof = sum((0.5 + 0.5 * rng.rand()) * np.exp(-0.5 * ((bins - grid[g]) / 5.0) ** 2)
+                   for g in t3)
+        profs.append(prof / prof.max())
+    return profs
+
+
+def ge2e_utterance(prof, rng, t):
+    """One (80, t) mel of a speaker: its profile under a random smooth
+    content envelope, plus noise, in [0, 1] (tools/quality_ge2e.py's)."""
+    tt = np.linspace(0, 1, t)
+    content = sum(rng.randn() * np.sin(2 * np.pi * k * tt + rng.rand() * 6) for k in range(1, 5))
+    content = 0.5 + 0.2 * content / max(1.0, np.abs(content).max())
+    mel = prof[:, None] * content[None, :] + 0.08 * rng.rand(80, t)
+    return np.clip(mel, 0.0, 1.0).astype(np.float32)
+
+
+def ge2e_corpus(root) -> tuple[str, str]:
+    """GE2E_SPEAKERS speakers, GE2E_TRAIN_UTTS mels (80, 70-200) each under
+    root/train and GE2E_HELD_UTTS under root/held."""
+    rng = np.random.RandomState(SEED + 50)
+    dirs = (os.path.join(root, "train"), os.path.join(root, "held"))
+    for si, prof in enumerate(ge2e_profiles(GE2E_SPEAKERS, rng)):
+        for d, n in zip(dirs, (GE2E_TRAIN_UTTS, GE2E_HELD_UTTS)):
+            os.makedirs(os.path.join(d, f"s{si:02d}"))
+            for u in range(n):
+                np.save(os.path.join(d, f"s{si:02d}", f"u{u:02d}.npy"),
+                        ge2e_utterance(prof, rng, int(rng.randint(70, 201))))
+    return dirs
+
+
+def lstm_macs(lstm) -> int:
+    """Multiply-adds a frame of an nn.LSTM: 4H(I + H) for each layer and
+    direction (the gates' two matmuls; the elementwise work is not counted)."""
+    h, dirs = lstm.hidden_size, 2 if lstm.bidirectional else 1
+    return sum(4 * h * ((lstm.input_size if layer == 0 else h * dirs) + h) * dirs
+               for layer in range(lstm.num_layers))
+
+
+def frame_macs(module) -> int:
+    """Multiply-adds a frame of every nn.LSTM, nn.Conv1d and nn.Linear below
+    module, each applied once a frame."""
+    total = 0
+    for m in module.modules():
+        if isinstance(m, torch.nn.LSTM):
+            total += lstm_macs(m)
+        elif isinstance(m, torch.nn.Conv1d):
+            total += m.in_channels * m.out_channels * m.kernel_size[0]
+        elif isinstance(m, torch.nn.Linear):
+            total += m.in_features * m.out_features
+    return total
+
+
+def step_flops(model, kind, batch) -> float:
+    """Operations of one train step, forward and backward (3 x the forward's
+    2 x multiply-adds): the GE2E encoder's LSTM over every frame and its
+    Linear once a sequence; AutoVC's generator over every frame plus the
+    content encoder again for the re-encode."""
+    if kind == "ge2e":
+        s, u, t, _ = batch.shape
+        fwd = lstm_macs(model.lstm) * s * u * t + frame_macs(model.linear) * s * u
+    else:
+        b, t, _ = batch.shape
+        fwd = (frame_macs(model) + frame_macs(model.encoder)) * b * t
+    return 3 * 2 * fwd
+
+
+def ge2e_grad_errs(g_c, g_g) -> tuple[float, float]:
+    """(worst max |diff| over max |g| of the encoder's gradients but the
+    similarity pair; the worst absolute diff of the similarity pair, and
+    of the bias's gradient from 0)."""
+    rel, sim = 0.0, 0.0
+    for n, a in g_c.items():
+        b = g_g[n]
+        if n.startswith("similarity"):
+            sim = max(sim, (a - b).abs().max().item())
+            if n == "similarity_bias":
+                sim = max(sim, a.abs().max().item(), b.abs().max().item())
+            continue
+        rel = max(rel, (a - b).abs().max().item() / a.abs().max().item())
+    return rel, sim
+
+
+def speaker_steps_against_cpu(card, dev, wav_path):
+    """Phase 13 (i): one GE2E step at (64, 10, 63, 80) and one AutoVC step at
+    8 x 64 on the card against the CPU, float32 and float64, from the same
+    weights and batch (TF32 off); the card's first GE2E update against
+    Adam's formula; AutoVC's gradient without the path through the running
+    statistics, reported; embed_utterance of one of phase 10's wavs."""
+    from dvc_tpu_torch.config import AutoVCConfig, SpeakerEncoderConfig
+    from dvc_tpu_torch.models.autovc import AutoVC
+    from dvc_tpu_torch.models.layers import BatchNorm
+    from dvc_tpu_torch.models.speaker_inference import SpeakerEmbedder
+    from dvc_tpu_torch.train import autovc_trainer as at
+    from dvc_tpu_torch.train import speaker_trainer as st
+    from dvc_tpu_torch.train.trainer import make_optimizer
+    from dvc_tpu_torch.utils.wavio import read_wav
+    t0 = time.perf_counter()
+    cfg = SpeakerEncoderConfig()
+    rng = np.random.RandomState(13)
+    batch = torch.from_numpy(rng.rand(cfg.speakers_per_batch, cfg.utterances_per_speaker,
+                                      cfg.partials_n_frames, cfg.mel_n_channels)
+                             .astype(np.float32))
+    base = st.create_speaker_encoder(cfg, SEED + 40, "cpu")
+    runs = {}
+    for name, d, dt in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
+                        ("cpu64", "cpu", torch.float64), ("card64", dev, torch.float64)):
+        model = copy.deepcopy(base).to(d, dt)
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        loss, sim = st.make_ge2e_step(model, make_optimizer(model, cfg.learning_rate))(
+            batch.to(d, dt))
+        runs[name] = (loss.item(), sim.cpu().double(),
+                      {n: p.grad.cpu().double() for n, p in model.named_parameters()},
+                      model, p0)
+    errs = {}
+    for tag, c, g in (("float32", "cpu", "card"), ("float64", "cpu64", "card64")):
+        (l_c, s_c, g_c, _, _), (l_g, s_g, g_g, _, _) = runs[c], runs[g]
+        errs[tag] = (abs(l_g - l_c) / abs(l_c),
+                     (s_g - s_c).abs().max().item() / s_c.abs().max().item(),
+                     *ge2e_grad_errs(g_c, g_g))
+    _, _, _, model, p0 = runs["card"]
+    upd_err = 0.0
+    for n, p in model.named_parameters():
+        want = p0[n] - cfg.learning_rate * p.grad / (p.grad.abs() + 1e-8)  # Adam's first step
+        upd_err = max(upd_err, (p.detach() - want).abs().max().item() / cfg.learning_rate)
+    norm = math.sqrt(sum((g ** 2).sum().item() for g in runs["cpu64"][2].values()))
+    print(f"GE2E step card vs CPU [{card}] full SpeakerEncoderConfig, batch "
+          f"{tuple(batch.shape)}, TF32 off: loss {runs['cpu'][0]:.5f}; "
+          + "; ".join(f"{tag}: loss rel err {e[0]:.3e} (limit {TERM_RTOL}), similarity "
+                      f"matrix {e[1]:.3e} of its max (limit {SIM_RTOL}), gradients rel err "
+                      f"{e[2]:.3e} (limit {F32_STEP_GRAD_RTOL if tag == 'float32' else GRAD_RTOL})"
+                      f", similarity gradients abs err {e[3]:.3e} (limit {SIM_GRAD_ATOL})"
+                      for tag, e in errs.items())
+          + f"; global norm after the scaling and clip {norm:.4f} (clip at {st.CLIP_NORM}); the "
+          f"first update "
+          f"against Adam's formula {upd_err:.3e} of lr (limit {UPDATE_RTOL}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for tag, (l_e, s_e, g_e, sg_e) in errs.items():
+        limit = F32_STEP_GRAD_RTOL if tag == "float32" else GRAD_RTOL
+        check(l_e <= TERM_RTOL and s_e <= SIM_RTOL, f"GE2E step {tag}: loss {l_e}, sim {s_e}")
+        check(g_e <= limit and sg_e <= SIM_GRAD_ATOL,
+              f"GE2E step {tag}: gradients {g_e}, similarity gradients {sg_e}")
+    check(upd_err <= UPDATE_RTOL, f"GE2E Adam update against its formula {upd_err}")
+
+    # AutoVC at the full AutoVCConfig, train-autovc's batch; the content
+    # term runs through the running statistics the forward has updated
+    t0 = time.perf_counter()
+    acfg = AutoVCConfig()
+    x = torch.from_numpy(rng.rand(AUTOVC_BATCH, AUTOVC_FRAMES, acfg.num_mels).astype(np.float32))
+    emb = torch.from_numpy(rng.randn(AUTOVC_BATCH, acfg.dim_emb).astype(np.float32))
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    base = seeded(lambda: AutoVC(acfg), SEED + 41).train()
+
+    def autovc_run(d, dt):
+        model = copy.deepcopy(base).to(d, dt)
+        terms = at.make_autovc_step(model, make_optimizer(model, 1e-4))(x.to(d, dt),
+                                                                         emb.to(d, dt))
+        return ([t.item() for t in terms],
+                {n: p.grad.cpu().double() for n, p in model.named_parameters()},
+                {n: b.cpu().double() for n, b in model.named_buffers() if "running" in n})
+
+    runs = {name: autovc_run(d, dt) for name, d, dt in (
+        ("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
+        ("cpu64", "cpu", torch.float64), ("card64", dev, torch.float64))}
+    errs = {}
+    for tag, c, g in (("float32", "cpu", "card"), ("float64", "cpu64", "card64")):
+        (t_c, g_c, s_c), (t_g, g_g, s_g) = runs[c], runs[g]
+        errs[tag] = (max(abs(a - b) / abs(a) for a, b in zip(t_c, t_g)),
+                     *vae_grad_errs(g_c, g_g, autovc_pre_bn_bias),
+                     max((s_c[n] - s_g[n]).abs().max().item() for n in s_c))
+    updated = BatchNorm.updated_stats
+    BatchNorm.updated_stats = lambda self, *a: tuple(t.detach() for t in updated(self, *a))
+    try:
+        shortcut = vae_grad_errs(runs["cpu64"][1], autovc_run(dev, torch.float64)[1],
+                                 autovc_pre_bn_bias)[0]
+    finally:
+        BatchNorm.updated_stats = updated
+    t_c = runs["cpu"][0]
+    print(f"AutoVC step card vs CPU [{card}] full AutoVCConfig, batch {AUTOVC_BATCH} x "
+          f"{AUTOVC_FRAMES} frames, TF32 off: total {t_c[0]:.5f} (recon {t_c[1]:.5f}, "
+          f"recon_post {t_c[2]:.5f}, content {t_c[3]:.5f}); "
+          + "; ".join(f"{tag}: terms rel err {e[0]:.3e} (limit {TERM_RTOL}), gradients rel "
+                      f"err {e[1]:.3e} (limit {F32_STEP_GRAD_RTOL if tag == 'float32' else GRAD_RTOL}),"
+                      f" decoder/postnet pre-BN conv biases' share {e[2]:.3e} (limit "
+                      f"{PRE_BN_BIAS_SHARE}), running stats abs err {e[3]:.3e} (limit "
+                      f"{STATS_ATOL})" for tag, e in errs.items())
+          + f"; the step without the gradient through the running statistics (float64, "
+          f"card) against the CPU's: {shortcut:.3e} (must exceed {10 * GRAD_RTOL}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    for tag, (t_e, g_e, b_e, s_e) in errs.items():
+        limit = F32_STEP_GRAD_RTOL if tag == "float32" else GRAD_RTOL
+        check(t_e <= TERM_RTOL and s_e <= STATS_ATOL, f"AutoVC step {tag}: terms {t_e}, "
+              f"stats {s_e}")
+        check(g_e <= limit and b_e <= PRE_BN_BIAS_SHARE,
+              f"AutoVC step {tag}: gradients {g_e}, pre-BN biases {b_e}")
+    check(shortcut > 10 * GRAD_RTOL,
+          f"AutoVC step without the path through the statistics passes ({shortcut})")
+
+    wav, sr = read_wav(wav_path)
+    sd = st.create_speaker_encoder(cfg, SEED + 42, "cpu").state_dict()
+    embeds = []
+    for d in ("cpu", dev):
+        embedder = SpeakerEmbedder(cfg, device=d)
+        embedder.load(sd)
+        embeds.append(embedder.embed_utterance(wav, return_partials=True))
+    e_err = float(np.abs(embeds[0][0] - embeds[1][0]).max())
+    p_err = float(np.abs(embeds[0][1] - embeds[1][1]).max())
+    print(f"embed_utterance card vs CPU [{card}] {os.path.basename(wav_path)} ({len(wav) / sr:.2f}"
+          f" s, {len(embeds[1][1])} partials of {cfg.partials_n_frames} frames): embedding max "
+          f"abs err {e_err:.3e}, partials {p_err:.3e} (limit {EMBED_CARD_ATOL})", flush=True)
+    check(np.isfinite(embeds[1][0]).all() and abs(np.linalg.norm(embeds[1][0]) - 1) < 1e-5,
+          "embed_utterance on the card not a unit vector")
+    check(max(e_err, p_err) <= EMBED_CARD_ATOL, f"embed_utterance card vs CPU {e_err}, {p_err}")
+
+
+def speaker_step_timings(card, dev):
+    """Phase 13 (ii): ms a step, peak memory above what was held, TFLOP/s
+    against the float32 bound and the idle share over 3 profiled steps, of
+    the GE2E step at (64, 10, 63, 80) and the AutoVC step at 8 x 64."""
+    from dvc_tpu_torch.config import AutoVCConfig, SpeakerEncoderConfig
+    from dvc_tpu_torch.train import autovc_trainer as at
+    from dvc_tpu_torch.train import speaker_trainer as st
+    from dvc_tpu_torch.train.trainer import make_optimizer
+    g = torch.Generator(device=dev).manual_seed(5)
+    cfg, acfg = SpeakerEncoderConfig(), AutoVCConfig()
+    enc = st.create_speaker_encoder(cfg, SEED, dev)
+    batch = torch.rand(cfg.speakers_per_batch, cfg.utterances_per_speaker,
+                       cfg.partials_n_frames, cfg.mel_n_channels, device=dev, generator=g)
+    ge2e_step = st.make_ge2e_step(enc, make_optimizer(enc, cfg.learning_rate))
+    autovc, opt = at.create_autovc(acfg, device=dev)
+    x = torch.rand(AUTOVC_BATCH, AUTOVC_FRAMES, acfg.num_mels, device=dev, generator=g)
+    emb = torch.nn.functional.normalize(
+        torch.randn(AUTOVC_BATCH, acfg.dim_emb, device=dev, generator=g), dim=1)
+    autovc_step = at.make_autovc_step(autovc, opt)
+    iters = 20
+    for name, step, flops in (
+            (f"GE2E (3 x LSTM 256), batch {tuple(batch.shape)}",
+             lambda: ge2e_step(batch, with_sim=False), step_flops(enc, "ge2e", batch)),
+            (f"AutoVC (full AutoVCConfig), batch {AUTOVC_BATCH} x {AUTOVC_FRAMES} frames",
+             lambda: autovc_step(x, emb).total, step_flops(autovc, "autovc", x))):
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held_gb = torch.cuda.memory_allocated(dev) / 1e9
+        _, ms = events_ms(lambda: [step() for _ in range(iters)])
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        loss = step().item()
+        check(math.isfinite(loss), f"{name}: loss not finite")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, p_ms = events_ms(lambda: [step() for _ in range(3)])
+        busy_us = device_busy_us(prof)
+        bound_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:3]
+        idle = (f"device busy {busy_us / 1e3:.1f} of {p_ms:.1f} ms (idle share "
+                f"{1 - busy_us / (p_ms * 1e3):.3f}; busy {busy_us / 3e3:.2f} ms a step against "
+                f"the unprofiled {ms / iters:.2f})" if busy_us > 0
+                else "device busy not measured (no device time recorded)")
+        idle += "; host ops by self CPU time a step: " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / 3e3:.2f} ms" for e in host)
+        print(f"train step [{card}] {name}, float32 (TF32 off): {ms / iters:.2f} ms a step "
+              f"(mean of {iters}), {flops / 1e9:.1f} GFLOP a step (forward and backward), "
+              f"{flops / (ms / iters / 1e3) / 1e12:.2f} TFLOP/s, float32 bound {bound_ms:.2f} "
+              f"ms ({bound_ms / (ms / iters):.3f} of it); peak memory {peak_gb:.2f} GB "
+              f"({peak_gb - held_gb:.2f} GB above the {held_gb:.2f} GB held); the profiler over "
+              f"3 steps: {idle}", flush=True)
+
+
+def speaker_phase(card, dev, recipe):
+    """Phase 13: the GE2E speaker encoder and the AutoVC baseline.  (iii)'s
+    children start first, (i) runs beside them, (ii) alone after them."""
+    kids = Children(recipe)
+    try:
+        speaker_steps(card, dev, recipe, kids)
+    finally:
+        kids.kill_all()
+
+
+def speaker_steps(card, dev, recipe, kids):
+    from dvc_tpu_torch.config import AutoVCConfig, SpeakerEncoderConfig
+    from dvc_tpu_torch.models.autovc import AutoVC
+    from dvc_tpu_torch.train.autovc_trainer import load_autovc_state
+    from dvc_tpu_torch.train.speaker_trainer import SpeakerEncoderTrainer
+    from dvc_tpu_torch.utils import msgpack
+    t0 = time.perf_counter()
+    train_dir, held_dir = ge2e_corpus(os.path.join(recipe, "ge2e"))
+    models = os.path.join(recipe, "ge2e_models")
+    mels10 = os.path.join(recipe, "mels_no_trim")
+    wav16 = os.path.join(recipe, "vctk", "VCTK-Corpus", "wav16")
+    print(f"GE2E corpus [{card}]: {GE2E_SPEAKERS} speakers x {GE2E_TRAIN_UTTS} training and "
+          f"{GE2E_HELD_UTTS} held-out mels of 70-200 frames ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    kids.start("train_speaker", ["train-speaker", "ge2e", train_dir, "-m", models,
+                                 "--n_steps", str(GE2E_STEPS), "--save_every", "100",
+                                 "--backup_every", str(GE2E_STEPS), "--umap_every", "100"])
+    autovc_runs = {"autovc_onehot": os.path.join(recipe, "autovc_onehot"),
+                   "autovc_ge2e": os.path.join(recipe, "autovc_ge2e")}
+    autovc_args = ["--dataset_fp", mels10, "--epochs", "2", "--batch-size", str(AUTOVC_BATCH),
+                   "--report-interval", "1", "--seed", str(SEED)]
+    kids.start("autovc_onehot", ["train-autovc", *autovc_args, "--log_dir",
+                                 autovc_runs["autovc_onehot"]])
+    # the encoder's initial weights (train-speaker's, seed 0) as a run of their own
+    SpeakerEncoderTrainer(SpeakerEncoderConfig(), run_id="ge2e_init", models_dir=models,
+                          device=dev).save()
+    wav_path = os.path.join(wav16, "p225", sorted(os.listdir(os.path.join(wav16, "p225")))[0])
+    speaker_steps_against_cpu(card, dev, wav_path)
+
+    said, secs = kids.wait("train_speaker")
+    logged = [ln for ln in said.splitlines() if ln.startswith("step ")]
+    losses = [float(ln.split("loss ")[1].split()[0]) for ln in logged]
+    batch_eers = [float(ln.split("EER ")[1].split()[0]) for ln in logged]
+    have = sorted(os.listdir(models))
+    viz = sorted(os.listdir(os.path.join(models, "viz")))
+    check(f"device-resident pool: {GE2E_SPEAKERS * GE2E_TRAIN_UTTS} utterances" in said,
+          f"train-speaker: {said[-1500:]}")
+    check(len(losses) == GE2E_STEPS // 10 and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"train-speaker losses {losses}")
+    check(have == ["ge2e.msgpack", f"ge2e_bak_{GE2E_STEPS:06d}.msgpack", "ge2e_init.msgpack",
+                   "viz"] and {"ge2e_params.json", "ge2e_dataset.json"} <= set(viz),
+          f"train-speaker wrote {have}, viz {viz}")
+    print(f"train-speaker [{card}]: child process {secs:.1f} s (start to exit, train-autovc "
+          f"beside it), {GE2E_STEPS} steps at {GE2E_SPEAKERS} x 10 x 63 on the resident pool; "
+          f"logged loss {losses[0]:.4f} -> {losses[-1]:.4f}, batch EER {batch_eers[0]:.4f} -> "
+          f"{batch_eers[-1]:.4f}; {logged[-1]}; {', '.join(have)}; viz {', '.join(viz)}",
+          flush=True)
+
+    for run_id in ("ge2e", "ge2e_init"):
+        kids.start(f"eval_eer_{run_id}", ["eval-eer", run_id, held_dir, "-m", models])
+    kids.start("embed", ["embed", "ge2e", wav16, "-m", models, "-o",
+                         os.path.join(recipe, "embeds")])
+    kids.start("autovc_ge2e", ["train-autovc", *autovc_args, "--log_dir",
+                               autovc_runs["autovc_ge2e"], "--encoder_run_id", "ge2e",
+                               "-m", models])
+    eers = {}
+    for run_id in ("ge2e", "ge2e_init"):
+        said, secs = kids.wait(f"eval_eer_{run_id}")
+        line = [ln for ln in said.splitlines() if ln.startswith("verification EER")]
+        check(len(line) == 1, f"eval-eer {run_id}: {said[-1500:]}")
+        eers[run_id] = float(line[0].rsplit(" ", 1)[1])
+        print(f"eval-eer [{card}] {run_id} on the held-out mels: child process {secs:.1f} s; "
+              f"{line[0]}", flush=True)
+    check(eers["ge2e"] < eers["ge2e_init"],
+          f"trained EER {eers['ge2e']} not below the initial weights' {eers['ge2e_init']}")
+    said, secs = kids.wait("embed")
+    out = os.path.join(recipe, "embeds")
+    files = sorted(os.listdir(out))
+    n_wavs = sum(len(fs) for _, _, fs in os.walk(wav16))
+    embeds = np.stack([np.load(os.path.join(out, f)) for f in files])
+    check(len(files) == n_wavs and embeds.shape[1] == 256 and np.isfinite(embeds).all()
+          and np.allclose(np.linalg.norm(embeds, axis=1), 1.0, atol=1e-5),
+          f"embed wrote {len(files)} files for {n_wavs} wavs")
+    print(f"embed [{card}]: child process {secs:.1f} s; {said.strip().splitlines()[-1]}; "
+          f"{len(files)} unit-norm (256,) embeddings", flush=True)
+    for name, run in autovc_runs.items():
+        said, secs = kids.wait(name)
+        losses = [float(ln.split("loss ")[1]) for ln in said.splitlines()
+                  if ln.startswith("====> AutoVC epoch")]
+        have = sorted(os.listdir(run))
+        check(len(losses) == 2 and all(map(math.isfinite, losses)) and losses[1] < losses[0],
+              f"{name} epoch losses {losses}: {said[-1500:]}")
+        check(have == ["autovc_1.msgpack", "autovc_2.msgpack"], f"{name} wrote {have}")
+        with open(os.path.join(run, "autovc_2.msgpack"), "rb") as f:
+            step = load_autovc_state(msgpack.unpackb(f.read()), AutoVC(AutoVCConfig()))
+        print(f"train-autovc [{card}] {name}: child process {secs:.1f} s; epoch losses "
+              f"{losses}; {', '.join(have)} (step {step})", flush=True)
+    speaker_step_timings(card, dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -2428,9 +2858,13 @@ def main() -> int:
 
     # 12. the mel VAE's remaining train and convert options, on phase 10's run
     latent_phase(card, dev, recipe.name, plain8)
+    phase_done(12)
+
+    # 13. the GE2E speaker encoder and the AutoVC baseline
+    speaker_phase(card, dev, recipe.name)
     recipe.cleanup()
     work.cleanup()
-    phase_done(12)
+    phase_done(13)
 
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's

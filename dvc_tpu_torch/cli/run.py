@@ -12,10 +12,12 @@ with ``--arch istft``, the iSTFT vocoder) on a directory of wavs.
 ``train --adv_cof`` adds the adversarial content regularizer
 (``--adv_mode confusion|grl``); ``train-fs`` trains the FeatureSelection
 mask that ``--fs_mask`` reads; ``convert --long_context`` encodes whole
-utterances, and ``convert --analyze`` writes the latent analysis.  The
-WORLD route, orbax checkpoints and ``eval-mcd --analysis device`` are not
-ported yet and exit with a message; dvc_tpu's other commands (the speaker
-encoder's, AutoVC's) are not here yet.
+utterances, and ``convert --analyze`` writes the latent analysis.
+``train-speaker`` trains the GE2E speaker encoder, ``embed`` and
+``eval-eer`` use it, and ``train-autovc`` trains the AutoVC baseline (on a
+GE2E encoder's embeddings with ``--encoder_run_id``).  The WORLD route,
+orbax checkpoints and ``eval-mcd --analysis device`` are not ported yet
+and exit with a message; dvc_tpu's WORLD commands are not here yet.
 
 Usage (the verify recipe, then serving):
   python -m dvc_tpu_torch.cli.run preprocess <datasets_root> -o <mel_dir> -d VCTK [--no_trim]
@@ -30,6 +32,11 @@ Usage (the verify recipe, then serving):
   python -m dvc_tpu_torch.cli.run vocode <mel.npy> [--vocoder_ckpt <r9y9 .pth | .msgpack>]
   python -m dvc_tpu_torch.cli.run train-vocoder <wav_dir> -m <models_dir> [--arch istft]
   python -m dvc_tpu_torch.cli.run convert ... --vocoder istft --vocoder_ckpt <istft .msgpack>
+  python -m dvc_tpu_torch.cli.run train-speaker <run_id> <mel_root> -m <models_dir>
+  python -m dvc_tpu_torch.cli.run embed <run_id> <wav_dir> -m <models_dir> -o <out_dir>
+  python -m dvc_tpu_torch.cli.run eval-eer <run_id> <mel_root> -m <models_dir>
+  python -m dvc_tpu_torch.cli.run train-autovc --dataset_fp <mel_dir> --log_dir <run> \\
+      [--encoder_run_id <run_id> -m <models_dir>]
 """
 
 from __future__ import annotations
@@ -391,6 +398,181 @@ def cmd_train_vocoder(args) -> int:
     return 0
 
 
+def _load_embedder(run_id: str, models_dir: str, device: str):
+    """A SpeakerEmbedder on ``device`` with the weights of the GE2E run
+    ``run_id`` (either package's ``{run_id}.msgpack``) at the full
+    SpeakerEncoderConfig; exits with dvc_tpu's message when there is none."""
+    from dvc_tpu_torch.config import SpeakerEncoderConfig
+    from dvc_tpu_torch.models.speaker_inference import SpeakerEmbedder
+    from dvc_tpu_torch.train.speaker_trainer import SpeakerEncoderTrainer
+    cfg = SpeakerEncoderConfig()
+    trainer = SpeakerEncoderTrainer(cfg, run_id=run_id, models_dir=models_dir, device=device)
+    if not trainer.resume():
+        raise SystemExit(f"no {run_id} checkpoint in {models_dir}")
+    embedder = SpeakerEmbedder(cfg, device=device)
+    embedder.load(trainer.model.state_dict())
+    return embedder
+
+
+def _center_crop(mel, win: int):
+    """(T, n_mels) -> its centre ``win`` frames, zero-padded when shorter
+    (dvc_tpu's crop in train-autovc and eval-eer)."""
+    import numpy as np
+    if len(mel) < win:
+        mel = np.pad(mel, ((0, win - len(mel)), (0, 0)))
+    start = max(0, (len(mel) - win) // 2)
+    return mel[start:start + win]
+
+
+def cmd_train_speaker(args) -> int:
+    """GE2E speaker-encoder training (reference preprocessing/encoder/train.py:18-133)."""
+    from dvc_tpu_torch.config import SpeakerEncoderConfig
+    from dvc_tpu_torch.data.speaker_dataset import (DeviceResidentSampler,
+                                                    SpeakerVerificationSampler)
+    from dvc_tpu_torch.train.speaker_trainer import SpeakerEncoderTrainer
+    from dvc_tpu_torch.utils.visualizations import Visualizations
+    cfg = SpeakerEncoderConfig(speakers_per_batch=args.speakers_per_batch,
+                               utterances_per_speaker=args.utterances_per_speaker,
+                               learning_rate=args.lr)
+    sampler = None
+    if not args.no_resident_pool:
+        # the utterance pool on the device: a step uploads its crop indices
+        # (~5 KB) instead of the 12.9 MB batch
+        try:
+            sampler = DeviceResidentSampler(
+                args.clean_data_root, cfg.speakers_per_batch, cfg.utterances_per_speaker,
+                cfg.partials_n_frames, seed=args.seed, device=args.device)
+            print(f"device-resident pool: {sampler.pool.shape[0]} utterances "
+                  f"({sampler.pool.nbytes / 2**20:.0f} MB on device)")
+        except MemoryError as e:
+            print(f"resident pool disabled ({e}); streaming from host")
+    if sampler is None:
+        sampler = SpeakerVerificationSampler(
+            args.clean_data_root, cfg.speakers_per_batch, cfg.utterances_per_speaker,
+            cfg.partials_n_frames, seed=args.seed)
+    trainer = SpeakerEncoderTrainer(cfg, run_id=args.run_id, models_dir=args.models_dir,
+                                    device=args.device)
+    if not args.no_resume and trainer.resume():
+        print(f"resumed {args.run_id} at step {trainer.step}")
+    # live loss/EER/step-time curves + periodic embedding projections
+    # (reference encoder/train.py:56-111 visdom/UMAP loop)
+    vis = Visualizations(args.run_id, os.path.join(args.models_dir, "viz"))
+    vis.log_params(cfg)
+    vis.log_dataset(args.clean_data_root, len(sampler.speakers))
+    trainer.train(sampler, args.n_steps, save_every=args.save_every,
+                  backup_every=args.backup_every, vis=vis, projection_every=args.umap_every)
+    return 0
+
+
+def cmd_embed(args) -> int:
+    """Utterance embeddings from a trained GE2E encoder (reference
+    preprocessing/encoder/inference.py:111-155 over a directory).  As in
+    dvc_tpu, a wav is embedded at its own sample rate, without resampling
+    (ROADMAP Queue 3)."""
+    from glob import glob
+
+    import numpy as np
+
+    from dvc_tpu_torch.utils.wavio import read_audio
+    embedder = _load_embedder(args.run_id, args.models_dir, args.device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    fps = sorted(glob(os.path.join(args.wav_dir, "**", "*.wav"), recursive=True)
+                 + glob(os.path.join(args.wav_dir, "**", "*.flac"), recursive=True))
+    for fp in fps:
+        wav, _sr = read_audio(fp)
+        embed = embedder.embed_utterance(wav)
+        rel = os.path.relpath(fp, args.wav_dir)
+        out_fn = "_".join(os.path.splitext(rel)[0].split(os.sep)) + "_embed.npy"
+        np.save(os.path.join(args.out_dir, out_fn), embed)
+    print(f"embedded {len(fps)} utterances -> {args.out_dir}")
+    return 0
+
+
+def cmd_eval_eer(args) -> int:
+    """Verification EER of a trained GE2E encoder over a labeled mel dir (one
+    subdirectory a speaker; dvc_tpu's eval-eer): one centre crop an
+    utterance, up to --max_utts a speaker."""
+    from glob import glob
+
+    import numpy as np
+
+    from dvc_tpu_torch.eval.eer import verification_eer
+    embedder = _load_embedder(args.run_id, args.models_dir, args.device)
+    win = embedder.cfg.partials_n_frames
+    embeds, ids = [], []
+    for spk in sorted(os.listdir(args.mel_dir)):
+        d = os.path.join(args.mel_dir, spk)
+        if not os.path.isdir(d):
+            continue
+        for fp in sorted(glob(os.path.join(d, "*.npy")))[:args.max_utts]:
+            e = embedder.embed_frames_batch(_center_crop(np.load(fp).T, win)[None])[0]
+            embeds.append(e / max(1e-12, np.linalg.norm(e)))
+            ids.append(spk)
+    if len(set(ids)) < 2:
+        raise SystemExit("need at least two speakers with utterances")
+    eer = verification_eer(np.stack(embeds), np.asarray(ids))
+    print(f"verification EER over {len(ids)} utterances, "
+          f"{len(set(ids))} speakers: {eer:.4f}")
+    return 0
+
+
+def cmd_train_autovc(args) -> int:
+    """AutoVC baseline training (dvc_tpu's train-autovc): the reconstruction
+    and content-consistency objective, conditioned on the speakers' mean
+    GE2E embeddings (--encoder_run_id; up to 8 centre crops a speaker) or
+    on one-hot codes.  Writes <log_dir>/autovc_{epoch}.msgpack (dvc_tpu's
+    AutoVCState) every --report-interval epochs and at the last."""
+    import numpy as np
+    import torch
+
+    from dvc_tpu_torch.config import AutoVCConfig
+    from dvc_tpu_torch.data.dataset import PairedMelDataset
+    from dvc_tpu_torch.train.autovc_trainer import (autovc_state_tree, create_autovc,
+                                                    make_autovc_step)
+    from dvc_tpu_torch.utils import msgpack
+    if args.samples_length is None:
+        args.samples_length = 64  # AutoVC trains on mel crops
+    ds = PairedMelDataset(args.dataset_fp, samples_length=args.samples_length)
+    acfg = AutoVCConfig()
+
+    # the per-speaker conditioning table
+    emb_table = np.zeros((len(ds.speaker_ids), acfg.dim_emb), np.float32)
+    if args.encoder_run_id:
+        embedder = _load_embedder(args.encoder_run_id, args.models_dir, args.device)
+        win = embedder.cfg.partials_n_frames
+        for si, utts in enumerate(ds.spk_utt):
+            crops = np.stack([_center_crop(np.load(fp).T, win) for fp in utts[:8]])
+            mean = embedder.embed_frames_batch(crops).mean(axis=0)
+            emb_table[si] = mean / max(1e-8, np.linalg.norm(mean))
+    else:
+        # one-hot speaker codes, dvc_tpu's stand-in for a trained encoder
+        for si in range(len(ds.speaker_ids)):
+            emb_table[si, si % acfg.dim_emb] = 1.0
+
+    model, optimizer = create_autovc(acfg, lr=args.lr, seed=args.seed, device=args.device)
+    dev = next(model.parameters()).device
+    step = make_autovc_step(model, optimizer)
+    os.makedirs(args.log_dir, exist_ok=True)
+    bs = min(args.batch_size, max(1, len(ds)))
+    n_steps = 0
+    for epoch in range(1, args.epochs + 1):
+        total, n = torch.zeros((), dtype=torch.float64, device=dev), 0
+        for x1, _x2, spk in ds.batches(bs):
+            x = torch.from_numpy(np.ascontiguousarray(np.transpose(x1, (0, 2, 1)),
+                                                      np.float32)).to(dev)
+            emb = torch.from_numpy(emb_table[np.asarray(spk)]).to(dev)
+            total += step(x, emb).total
+            n += 1
+        n_steps += n
+        ds.shuffle_data()
+        print(f"====> AutoVC epoch {epoch}: loss {total.item() / max(n, 1):.4f}")
+        if epoch % args.report_interval == 0 or epoch == args.epochs:
+            out = os.path.join(args.log_dir, f"autovc_{epoch}.msgpack")
+            with open(out, "wb") as f:
+                f.write(msgpack.packb(autovc_state_tree(model, optimizer, n_steps)))
+    return 0
+
+
 def _pair_converted_to_source(src_dir: str, cvt_dir: str) -> list:
     """Match converted wavs to their source wavs without renaming (dvc_tpu's
     rule, dvc_tpu/cli/run.py:525-563).
@@ -536,6 +718,49 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve the model-free DSP conversion (no checkpoint); "
                         "the vocoder is the only device work")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("train-speaker")
+    p.add_argument("run_id")
+    p.add_argument("clean_data_root")
+    p.add_argument("-m", "--models_dir", required=True)
+    p.add_argument("--n_steps", type=int, default=10_000)
+    p.add_argument("--speakers_per_batch", type=int, default=64)
+    p.add_argument("--utterances_per_speaker", type=int, default=10)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save_every", type=int, default=500)
+    p.add_argument("--backup_every", type=int, default=3000)
+    p.add_argument("--umap_every", type=int, default=100)
+    p.add_argument("--no_resume", action="store_true")
+    p.add_argument("--no_resident_pool", action="store_true",
+                   help="stream batches from the host instead of the device-resident "
+                        "utterance pool")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_train_speaker)
+
+    p = sub.add_parser("embed")
+    p.add_argument("run_id")
+    p.add_argument("wav_dir")
+    p.add_argument("-m", "--models_dir", required=True)
+    p.add_argument("-o", "--out_dir", required=True)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_embed)
+
+    p = sub.add_parser("eval-eer")
+    p.add_argument("run_id")
+    p.add_argument("mel_dir")
+    p.add_argument("-m", "--models_dir", required=True)
+    p.add_argument("--max_utts", type=int, default=50, help="utterances per speaker cap")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_eval_eer)
+
+    p = sub.add_parser("train-autovc")
+    _add_model_args(p)
+    p.add_argument("--encoder_run_id", default="",
+                   help="GE2E run id for speaker embeddings (one-hot codes when omitted)")
+    p.add_argument("-m", "--models_dir", default="",
+                   help="GE2E models dir (with --encoder_run_id)")
+    p.set_defaults(fn=cmd_train_autovc)
     return parser
 
 

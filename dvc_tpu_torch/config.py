@@ -1,7 +1,8 @@
 """Typed configuration: the dataclasses the serving and training paths read.
 
 A copy of dvc_tpu/config.py's AudioConfig, VAEConfig, LossConfig,
-TrainConfig, VocoderConfig, ISTFTVocoderConfig and Config (the port imports
+TrainConfig, VocoderConfig, ISTFTVocoderConfig, SpeakerEncoderConfig,
+AutoVCConfig and Config (the port imports
 nothing of dvc_tpu), cut to the fields the port reads; names and defaults are
 dvc_tpu's.  TrainConfig has no ``donate_state``: there is no jit to donate
 to.  ``checkpoint_format="orbax"`` is kept so a dvc_tpu config reads the
@@ -147,12 +148,43 @@ class ISTFTVocoderConfig:
 
 
 @dataclass(frozen=True)
+class SpeakerEncoderConfig:
+    """GE2E speaker encoder (reference: preprocessing/encoder/params_model.py:1-11)."""
+
+    mel_n_channels: int = 80
+    hidden_size: int = 256
+    embedding_size: int = 256
+    num_layers: int = 3
+    speakers_per_batch: int = 64
+    utterances_per_speaker: int = 10
+    learning_rate: float = 1e-4
+    partials_n_frames: int = 63
+
+
+@dataclass(frozen=True)
+class AutoVCConfig:
+    """AutoVC baselines (reference: autovc_replicate/original_autovc.py:295-328,
+    proposed_autovc.py:187-220)."""
+
+    dim_neck: int = 32
+    dim_emb: int = 256
+    dim_pre: int = 512
+    freq: int = 32
+    num_mels: int = 80
+    # "proposed" plain-autoencoder variant
+    proposed_dim_neck: int = 64
+    proposed_latent_dim: int = 256
+
+
+@dataclass(frozen=True)
 class Config:
     audio: AudioConfig = field(default_factory=AudioConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
+    speaker_encoder: SpeakerEncoderConfig = field(default_factory=SpeakerEncoderConfig)
+    autovc: AutoVCConfig = field(default_factory=AutoVCConfig)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=4, default=str)

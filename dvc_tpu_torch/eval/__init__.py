@@ -1,1 +1,1 @@
-"""Evaluation: mel-cepstral distortion."""
+"""Evaluation: mel-cepstral distortion and the speaker encoder's equal error rate."""

@@ -5,9 +5,10 @@ The modules keep the reference checkpoints' state-dict names
 reference ``.pth`` loads with ``load_state_dict``.  Layout is torch's own:
 ConvNorm takes (B, C, T) and LinearNorm acts on the last axis.
 
-- ConvNorm / LinearNorm: xavier init (gain 1, the only gain the VAE uses)
-  with the reference's bias override (Linear 0.01, Conv 0;
-  disentangled_vae.py:22-25).
+- ConvNorm / LinearNorm: xavier init with the reference's bias override
+  (Linear 0.01, Conv 0; disentangled_vae.py:22-25), the VAE's; AutoVC
+  asks for a conv gain by name and torch's default bias
+  (``bias_init_value`` None), as dvc_tpu's layers do (layers.py:52-98).
 - BatchNorm: an ``nn.BatchNorm1d`` (same state-dict names) whose train mode
   is dvc_tpu's _GroupedBN (layers.py:140-178): statistics per group of the
   batch; in eval mode it normalizes by the running statistics, exactly as
@@ -18,6 +19,9 @@ ConvNorm takes (B, C, T) and LinearNorm acts on the last axis.
   from scratch (lecun-normal kernels, zero biases).
 - frozen_running_stats: BatchNorms that normalize as in train mode but keep
   their running statistics, for the recomputation of a checkpointed forward.
+- running_stats_in_graph: BatchNorms whose updated running statistics carry
+  gradient into a later eval-mode call, as dvc_tpu's ``mutable`` statistics
+  do when they are fed back to ``apply`` (AutoVC's content term).
 """
 
 from __future__ import annotations
@@ -66,32 +70,60 @@ def frozen_running_stats(module: nn.Module):
             m.update_stats = True
 
 
+@contextlib.contextmanager
+def running_stats_in_graph(module: nn.Module):
+    """While open, a train-mode BatchNorm below ``module`` computes its
+    updated running statistics as tensors that carry gradient and keeps
+    them (``graph_stats``); its buffers receive the same values, detached.
+    An eval-mode call then normalizes by those tensors, so a loss on it
+    differentiates through the statistics into the layers ahead of the
+    BatchNorm, as dvc_tpu's does when the ``mutable=["batch_stats"]``
+    output of a train call is applied again (nothing stops its gradient;
+    layers.py:170-177).  Updating the buffers under ``no_grad`` alone
+    drops that path."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.stats_in_graph = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_in_graph = False
+            m.graph_stats = None
+
+
 class LinearNorm(nn.Module):
     """Linear with xavier init and bias 0.01 (reference
-    model/disentangled_vae.py:90-100 after its init_weights pass)."""
+    model/disentangled_vae.py:90-100 after its init_weights pass), or
+    torch's default bias when ``bias_init_value`` is None."""
 
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, bias_init_value: float | None = 0.01):
         super().__init__()
         self.linear_layer = nn.Linear(in_dim, out_dim)
         nn.init.xavier_uniform_(self.linear_layer.weight)
-        nn.init.constant_(self.linear_layer.bias, 0.01)
+        if bias_init_value is not None:
+            nn.init.constant_(self.linear_layer.bias, bias_init_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_layer(x)
 
 
 class ConvNorm(nn.Module):
-    """1-D conv with SAME padding (odd kernel), xavier init and bias 0
-    (reference model/disentangled_vae.py:103-121); (B, C, T) in and out."""
+    """1-D conv with SAME padding (odd kernel), xavier init of gain
+    ``w_init_gain`` and bias 0 (reference model/disentangled_vae.py:103-121),
+    or torch's default bias when ``bias_init_value`` is None; (B, C, T) in
+    and out."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 w_init_gain: str = "linear", bias_init_value: float | None = 0.0):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("ConvNorm needs an odd kernel size")
         self.conv = nn.Conv1d(in_channels, out_channels, kernel_size,
                               padding=(kernel_size - 1) // 2)
-        nn.init.xavier_uniform_(self.conv.weight)
-        nn.init.zeros_(self.conv.bias)
+        nn.init.xavier_uniform_(self.conv.weight, gain=nn.init.calculate_gain(w_init_gain))
+        if bias_init_value is not None:
+            nn.init.constant_(self.conv.bias, bias_init_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -109,16 +141,33 @@ class BatchNorm(nn.BatchNorm1d):
     ``nn.BatchNorm1d`` once on the 2B batch (one set of statistics), or
     once per half (two moving-average updates), would each differ from
     dvc_tpu's pair-fused step.  groups = 1 is torch's own train-mode rule.
-    ``update_stats`` False (set by frozen_running_stats) skips the update."""
+    ``update_stats`` False (set by frozen_running_stats) skips the update;
+    ``stats_in_graph`` (set by running_stats_in_graph) keeps the updated
+    statistics in the autograd graph for the next eval-mode call."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
                  groups: int = 1):
         super().__init__(channels, eps=eps, momentum=1.0 - momentum)
         self.groups = groups
         self.update_stats = True
+        self.stats_in_graph = False
+        self.graph_stats: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def updated_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                      n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The running statistics after one update by a batch's mean and
+        biased variance over n values, as tensors that carry the batch's
+        gradient."""
+        m = self.momentum
+        return ((1.0 - m) * self.running_mean + m * mean,
+                (1.0 - m) * self.running_var + m * var * (n / max(n - 1, 1)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            if self.stats_in_graph and self.graph_stats is not None:
+                mean, var = self.graph_stats
+                y = (x - mean[:, None]) * torch.rsqrt(var[:, None] + self.eps)
+                return y * self.weight[:, None] + self.bias[:, None]
             return super().forward(x)
         g = self.groups
         b, c, t = x.shape
@@ -131,11 +180,11 @@ class BatchNorm(nn.BatchNorm1d):
         y = y * self.weight[:, None] + self.bias[:, None]
         if not self.update_stats:
             return y
+        stats = self.updated_stats(mean.mean(0).flatten(), var.mean(0).flatten(), (b // g) * t)
+        if self.stats_in_graph:
+            self.graph_stats = stats
         with torch.no_grad():
-            n = (b // g) * t
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.mean(0).flatten(), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var.mean(0).flatten(),
-                                                alpha=m * n / max(n - 1, 1))
+            self.running_mean.copy_(stats[0])
+            self.running_var.copy_(stats[1])
             self.num_batches_tracked.add_(1)
         return y

@@ -1,14 +1,15 @@
 """The weight bridge between dvc_tpu parameter trees and the port's state
 dicts, both ways, and the reference .pth helpers.
 
-``vae_state_dict_from_jax``, ``wavenet_state_dict_from_jax`` and
-``istft_state_dict_from_jax`` take the JAX package's parameter trees as
+``vae_state_dict_from_jax``, ``wavenet_state_dict_from_jax``,
+``istft_state_dict_from_jax``, ``speaker_encoder_state_dict_from_jax`` and
+``autovc_state_dict_from_jax`` take the JAX package's parameter trees as
 nested mappings of numpy arrays and return state dicts with the reference
 checkpoints' names (the iSTFT vocoder has no reference: its names are the
 port's modules; nor do ``feature_selection_state_dict_from_jax`` and
 ``adversary_state_dict_from_jax``, whose flax Dense names are the port's
-Linear names); ``vae_tree_from_state_dict``,
-``wavenet_tree_from_state_dict`` and ``istft_tree_from_state_dict`` go back,
+Linear names; nor does AutoVC, whose port modules carry dvc_tpu's
+names); the ``*_tree_from_state_dict`` functions go back,
 and ``optax_adam_from_torch`` / ``torch_adam_from_optax`` carry Adam's
 moments and step between torch and optax.  The map is
 dvc_tpu/utils/torch_convert.py's, inverted:
@@ -263,6 +264,93 @@ def istft_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
         else:
             _put(params, path, _conv1d_inv(sd, prefix))
     return params
+
+
+def speaker_encoder_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """dvc_tpu SpeakerEncoder params -> the port's SpeakerEncoder state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    _lstm(sd, "lstm", params["lstm"])
+    _linear(sd, "linear", params["linear"])
+    for name in ("similarity_weight", "similarity_bias"):
+        sd[name] = _t(params[name])
+    return sd
+
+
+def speaker_encoder_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's SpeakerEncoder state dict -> dvc_tpu's params tree; the
+    inverse of speaker_encoder_state_dict_from_jax."""
+    return {"lstm": _lstm_inv(sd, "lstm"), "linear": _linear_inv(sd, "linear"),
+            "similarity_weight": _np(sd["similarity_weight"]),
+            "similarity_bias": _np(sd["similarity_bias"])}
+
+
+def _autovc_layout(proposed: bool) -> list[tuple[str, tuple[str, ...]]]:
+    """(kind, dvc_tpu tree path) of every layer of AutoVC / AutoVCF0, or of
+    ProposedAutoVC; the port's modules carry the same names (see
+    _autovc_prefix), so both directions walk this one table."""
+    def convs(scope, conv, bn, n):
+        return [x for i in range(n) for x in (("conv", scope + (f"{conv}{i}", "conv")),
+                                              ("bn", scope + (f"{bn}{i}", "bn")))]
+    if proposed:
+        out = (convs((), "enc_conv", "enc_bn", 3)
+               + [("lstm", ("enc_lstm",)), ("linear", ("latent_code", "dense")),
+                  ("linear", ("dec_linear", "dense")), ("lstm", ("dec_lstm1",))]
+               + convs((), "dec_conv", "dec_bn", 3)
+               + [("lstm", ("dec_lstm2",)), ("linear", ("linear_projection", "dense"))])
+    else:
+        out = (convs(("encoder",), "conv", "bn", 3)
+               + [("lstm", ("encoder", "lstm")), ("lstm", ("decoder", "lstm1"))]
+               + convs(("decoder",), "conv", "bn", 3)
+               + [("lstm", ("decoder", "lstm2")),
+                  ("linear", ("decoder", "linear_projection", "dense"))])
+    return out + convs(("postnet",), "conv", "bn", 5)
+
+
+def _autovc_prefix(kind: str, path: tuple[str, ...]) -> str:
+    """A tree path's state-dict prefix: a ConvNorm's conv is ``.conv`` in
+    both, a LinearNorm's dense is the port's ``.linear_layer``, and flax's
+    ``bn`` level is the port's BatchNorm itself."""
+    if kind == "bn":
+        return ".".join(path[:-1])
+    if kind == "linear":
+        return ".".join(path[:-1] + ("linear_layer",))
+    return ".".join(path)
+
+
+def autovc_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any] | None
+                               ) -> dict[str, torch.Tensor]:
+    """dvc_tpu AutoVC, AutoVCF0 or ProposedAutoVC (params, batch_stats) ->
+    the port's state dict of the same generator; with batch_stats None the
+    running statistics are left out (a tree of Adam moments)."""
+    sd: dict[str, torch.Tensor] = {}
+    for kind, path in _autovc_layout("encoder" not in params):
+        prefix, p = _autovc_prefix(kind, path), _get(params, path)
+        if kind == "bn":
+            _bn(sd, prefix, p, None if batch_stats is None else _get(batch_stats, path))
+        else:
+            {"conv": _conv1d, "linear": _linear, "lstm": _lstm}[kind](sd, prefix, p)
+    return sd
+
+
+def autovc_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """The port's AutoVC-family state dict -> dvc_tpu's (params,
+    batch_stats); the inverse of autovc_state_dict_from_jax.  A state dict
+    without running statistics gives an empty batch_stats."""
+    params: dict = {}
+    stats: dict = {}
+    for kind, path in _autovc_layout(not any(k.startswith("encoder.") for k in sd)):
+        prefix = _autovc_prefix(kind, path)
+        if kind == "bn":
+            _put(params, path, {"scale": _np(sd[f"{prefix}.weight"]),
+                                "bias": _np(sd[f"{prefix}.bias"])})
+            if f"{prefix}.running_mean" in sd:
+                _put(stats, path, {"mean": _np(sd[f"{prefix}.running_mean"]),
+                                   "var": _np(sd[f"{prefix}.running_var"])})
+        else:
+            inv = {"conv": _conv1d_inv, "linear": _linear_inv, "lstm": _lstm_inv}[kind]
+            _put(params, path, inv(sd, prefix))
+    return params, stats
 
 
 def optax_adam_from_torch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,

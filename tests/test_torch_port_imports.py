@@ -34,7 +34,11 @@ MODULES = [
     "dvc_tpu_torch.train.vocoder_trainer", "dvc_tpu_torch.train.istft_vocoder_trainer",
     "dvc_tpu_torch.utils.plotting", "dvc_tpu_torch.models.feature_selection",
     "dvc_tpu_torch.train.feature_selection_trainer", "dvc_tpu_torch.train.adversarial",
-    "dvc_tpu_torch.models.long_context",
+    "dvc_tpu_torch.models.long_context", "dvc_tpu_torch.eval.eer",
+    "dvc_tpu_torch.data.speaker_dataset", "dvc_tpu_torch.models.speaker_encoder",
+    "dvc_tpu_torch.train.speaker_trainer", "dvc_tpu_torch.models.speaker_inference",
+    "dvc_tpu_torch.utils.visualizations", "dvc_tpu_torch.models.autovc",
+    "dvc_tpu_torch.train.autovc_trainer",
 ]
 
 FORBIDDEN_SO = os.sep + os.path.join("dvc_tpu", "native") + os.sep
