@@ -26,9 +26,11 @@ Phases; any failure exits non-zero before a result line is printed:
             CUDA vocoder, and 3 concurrent POST /convert of 0.5 s wavs; the
             VAE on the card against the same VAE on the CPU;
   4. shapes the kernel against its plain version at the shapes the main path
-            gave it, float32 and bf16 weights at the limits above (every
-            block's draws equal; the timed call's output is the one
-            compared, and equals the check run's), timed with CUDA events;
+            gave it, bf16 weights over all its steps and float32 over the
+            first F32_MAIN_STEPS (the plain sampler's depth cut to keep the
+            script's time) at the limits above (every block's draws equal;
+            the timed call's output is the one compared, and equals the
+            check run's), timed with CUDA events;
   5. plan    each dtype's block plan (blocks, rows a block, row tile,
             resident layers and bytes) and the barrier floor; us per sample
             step for bf16 and int8 at B in {1, 3, 4, 8}, beside the per-launch
@@ -173,10 +175,30 @@ Phases; any failure exits non-zero before a result line is printed:
             `train-autovc --encoder_run_id` (2 epochs at batch 8 each, the
             loss falling, checkpoints the port reads); (ii) then ms a step,
             TFLOP/s against the float32 bound, peak memory and the idle
-            share of both steps.
+            share of both steps;
+ 14. world  the WORLD route on phase 10's corpus (no hand kernel: dvc_tpu
+            reaches no pl.pallas_call there): (iii) `preprocess-world`
+            --f0 native and --f0 device as children at once (the same
+            files and keys; normalized_mc device against native, the
+            median over frames of the largest difference 0.05); (i)
+            meanwhile world_decompose_batch on the 48 wavs on the card,
+            harvest_batch's seconds and its frame scans' share timed, the
+            card's f0 against the native engine per wav (voicing agreement
+            0.93, median relative error 0.01); (ii) synthesize_batch on
+            the card against the CPU with the same noise (1e-4 of the
+            peak); (iii) `train --features mcc` 2 epochs at batch 8 on the
+            --f0 device features, then
+            `convert-world` (native synthesis) and `convert-world --synth
+            device` and `serve --pipeline world` answering 3 concurrent
+            requests (one at 22.05 kHz) at once, then `eval-mcd
+            --analysis device` and `--analysis native` on the converted
+            wavs (the mean MCD within 5%); (i) the CPU's world_decompose_batch on
+            the 48 wavs, in a thread beside the children: Harvest card
+            against CPU (voicing agreement 0.99, median relative error
+            1e-4), the mc card against CPU (1e-3 of its range).
 Each phase prints its seconds.  The lines before the last report the card
 (nvidia-smi name and power limit), timings and one JSON line of kernels
-(phases 8-13 add none); the last line is
+(phases 8-14 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -213,6 +235,8 @@ BF16_ATOL = 0.05   # bf16 roundings of h, the gate and the skip flip by one ulp
                    # any other small change: float32 is the fine check
 TRAJ_STD = 0.05    # the doctored trajectory's spread, set by doctor_head and
                    # required at T = 1024, start-up transient included
+F32_MAIN_STEPS = 4096  # phase 4's float32 check: the first steps of the main path's cond
+                       # (the sampler is causal, so they are the full run's first steps)
 MAIN_STD = 0.02    # required over the main path's 16,384 steps, where the
                    # steady trajectory, which moves less, dominates
 INT8_FINE_ATOL = 6e-3  # int8 kernel vs plain at the narrow width, feedback cut:
@@ -2386,6 +2410,286 @@ def speaker_steps(card, dev, recipe, kids):
     speaker_step_timings(card, dev)
 
 
+WORLD_AGREE_MIN = 0.99   # phase 14 (i): Harvest card against CPU, voicing agreement, and
+WORLD_F0_MEDIAN = 1e-4   # the median relative f0 error on frames voiced in both (the CPU
+                         # reads 1e-6 against dvc_tpu: tests/test_torch_port_harvest.py)
+NATIVE_AGREE_MIN = 0.93  # phase 14 (i): Harvest against the native engine, per wav: the
+NATIVE_F0_MEDIAN = 0.01  # realistic (voiced-silence-voiced) gates of tests/test_harvest_tpu.py
+WORLD_MC_RANGE = 1e-3    # phase 14 (ii): world_decompose_batch's mc card against CPU, of
+                         # its range (the CPU test's limit against dvc_tpu)
+WORLD_SYNTH_RTOL = 1e-4  # phase 14 (ii): synthesize_batch card against CPU, the same noise,
+                         # of the peak (tests/test_torch_port_world_synthesis.py: 1e-5)
+WORLD_NORM_MEDIAN = 0.05  # phase 14 (iii): preprocess-world --f0 device against native: the
+                          # median over frames of normalized_mc's largest difference (in
+                          # speaker standard deviations; voicing flips move single frames)
+WORLD_MCD_RTOL = 0.05    # phase 14 (iii): eval-mcd --analysis device against native: dvc_tpu's
+                         # own gate (tests/test_eval.py, per utterance on tones), held on the
+                         # mean MCD eval-mcd reports; per utterance it is reported only, since
+                         # dvc_tpu's own device analysis is 7.1% off its native one on one of
+                         # these converted utterances on the CPU, as the port's is (PERF.md)
+
+
+def world_phase(card, dev, recipe):
+    """Phase 14: the WORLD route on the card, on phase 10's corpus.  (iii)'s
+    children start first, (i) and (ii) run beside them."""
+    kids = Children(recipe)
+    try:
+        world_steps(card, dev, recipe, kids)
+    finally:
+        kids.kill_all()
+
+
+def world_steps(card, dev, recipe, kids):
+    from dvc_tpu_torch.native import world as native_world
+    from dvc_tpu_torch.ops import harvest as ph
+    from dvc_tpu_torch.ops import world as pw
+    from dvc_tpu_torch.ops.audio import resample_poly
+    from dvc_tpu_torch.utils.wavio import parse_wav, read_wav, wav_bytes
+    sync = torch.cuda.synchronize
+    wav16 = os.path.join(recipe, "vctk", "VCTK-Corpus", "wav16")
+    world = {m: os.path.join(recipe, f"world_{m}") for m in ("native", "device")}
+    run = os.path.join(recipe, "run_mcc")
+
+    # (iii) preprocess-world in both modes, as two children at once
+    for m in world:
+        kids.start(f"preprocess_world_{m}", ["preprocess-world", wav16, "-o", world[m],
+                                             "--f0", m])
+
+    # (i) Harvest and the batched analysis on the card, timed; the CPU's
+    # in a thread beside the children
+    paths = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(wav16) for f in fs)
+    wavs = []
+    for p in paths:
+        w, sr = read_wav(p)
+        wavs.append(w if sr == 16000 else resample_poly(torch.from_numpy(w), sr, 16000).numpy())
+    audio_s = sum(len(w) for w in wavs) / 16000
+    pw.world_decompose_batch(wavs[:2], 16000, keep_sp_ap=False, device=dev)  # warm-up
+    spent = {"harvest_batch": 0.0, "_extend": 0.0, "_smooth_segments": 0.0}
+    real = {name: getattr(ph, name) for name in spent}
+
+    def timed(name):
+        def fn(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = real[name](*a, **k)
+            sync()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return fn
+
+    for name in spent:
+        setattr(ph, name, timed(name))
+    try:
+        card_res = pw.world_decompose_batch(wavs, 16000, keep_sp_ap=False, device=dev)
+    finally:
+        for name, fn in real.items():
+            setattr(ph, name, fn)
+    sync()
+    t0 = time.perf_counter()
+    pw.world_decompose_batch(wavs, 16000, keep_sp_ap=False, device=dev)
+    sync()
+    dec_s = time.perf_counter() - t0
+    scans = spent["_extend"] + spent["_smooth_segments"]
+    print(f"harvest_batch [{card}]: {len(wavs)} wavs, {audio_s:.1f} s of audio, in "
+          f"{spent['harvest_batch']:.2f} s ({audio_s / spent['harvest_batch']:.1f} s of audio a "
+          f"second; host clock, synchronized at each call): the two frame scans "
+          f"{scans:.2f} s of it, a share of {scans / spent['harvest_batch']:.3f} (_extend "
+          f"{spent['_extend']:.2f} s, _smooth_segments {spent['_smooth_segments']:.2f} s); "
+          f"world_decompose_batch {dec_s:.2f} s ({audio_s / dec_s:.1f} s of audio a second, "
+          f"host clock, unsynchronized inside)", flush=True)
+
+    # the native engine's f0 at the realistic gates
+    with ThreadPoolExecutor(8) as pool:
+        nat = list(pool.map(lambda w: native_world.harvest(w, 16000, 5.0)[0], wavs))
+    n_agree, n_med = [], []
+    for (f0, *_), fn in zip(card_res, nat):
+        f0 = f0[:len(fn)]
+        both = (f0 > 0) & (fn > 0)
+        n_agree.append(float(((f0 > 0) == (fn > 0)).mean()))
+        n_med.append(float(np.median(np.abs(f0[both] - fn[both]) / fn[both])) if both.any()
+                     else math.inf)
+    print(f"harvest_batch against the native engine [{card}]: per wav voicing agreement min "
+          f"{min(n_agree):.4f} (limit {NATIVE_AGREE_MIN}), median relative error max "
+          f"{max(n_med):.3e} (limit {NATIVE_F0_MEDIAN})", flush=True)
+    check(min(n_agree) >= NATIVE_AGREE_MIN and max(n_med) < NATIVE_F0_MEDIAN,
+          f"card Harvest against native: agreement {min(n_agree)}, median {max(n_med)}")
+
+    # (ii) synthesize_batch card against CPU, the same noise, on the card's
+    # features of 8 wavs with the conversion's flat aperiodicity
+    feats = []
+    for f0, _, _, _, mc in card_res[:8]:
+        sp = pw.world_decode_mc(mc, 16000, device=dev)
+        ap = np.full(sp.shape, 0.2, np.float32)
+        ap[f0 == 0] = 1.0 - 1e-12
+        feats.append((f0, sp, ap))
+    args = [[f[k] for f in feats] for k in range(3)]
+    want = pw.synthesize_batch(*args, 16000, device="cpu")
+    pw.synthesize_batch(*args, 16000, device=dev)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    got = pw.synthesize_batch(*args, 16000, device=dev)
+    syn_s = time.perf_counter() - t0
+    n_batches = len({-(-len(f0) // 256) for f0 in args[0]})
+    syn_err = max(rel_err(torch.from_numpy(g), torch.from_numpy(w)) for g, w in zip(got, want))
+    print(f"synthesize_batch card vs CPU [{card}] {len(got)} utterances in {n_batches} "
+          f"batches: max err {syn_err:.3e} of the peak (limit {WORLD_SYNTH_RTOL}); "
+          f"{syn_s * 1e3 / n_batches:.1f} ms a batch on the card (host clock, to the "
+          f"waveforms on the host)", flush=True)
+    check(all(g.shape == w.shape for g, w in zip(got, want)) and syn_err <= WORLD_SYNTH_RTOL,
+          f"synthesize_batch card against CPU {syn_err}")
+
+    # (iii) train --features mcc on the device's features (the faster child),
+    # 2 epochs at batch 8; (i)'s CPU reference in a thread from here on,
+    # beside the children
+    said, secs = {}, {}
+    said["pre_device"], secs["preprocess-world device"] = kids.wait("preprocess_world_device")
+    kids.start("train_mcc", ["train", "--features", "mcc", "--dataset_fp", world["device"],
+                             "--log_dir", run, "--epochs", "2", "--batch-size", "8",
+                             "--report-interval", "2", "--seed", str(SEED)])
+    said["pre_native"], secs["preprocess-world native"] = kids.wait("preprocess_world_native")
+    cpu_out = {}
+
+    def on_cpu():
+        t0 = time.perf_counter()
+        cpu_out["res"] = pw.world_decompose_batch(wavs, 16000, keep_sp_ap=False, device="cpu")
+        cpu_out["s"] = time.perf_counter() - t0
+
+    cpu_thread = threading.Thread(target=on_cpu, daemon=True)
+    cpu_thread.start()
+    for m in world:
+        check(said[f"pre_{m}"].count(" files, logf0 ") == len(RECIPE_SPEAKERS),
+              f"preprocess-world {m}: {said[f'pre_{m}'][-1500:]}")
+    diffs, n_files, f_agree = [], 0, []
+    for spk in RECIPE_SPEAKERS:
+        names = sorted(os.listdir(os.path.join(world["native"], spk)))
+        check(names == sorted(os.listdir(os.path.join(world["device"], spk)))
+              and len(names) == 12, f"preprocess-world wrote {names}")
+        for name in names:
+            with np.load(os.path.join(world["native"], spk, name)) as a, \
+                    np.load(os.path.join(world["device"], spk, name)) as b:
+                check(sorted(a.files) == sorted(b.files) == ["f0", "mc_mean", "mc_std", "mcc",
+                                                             "normalized_mc"]
+                      and a["normalized_mc"].shape == b["normalized_mc"].shape
+                      and np.isfinite(b["normalized_mc"]).all(), f"preprocess-world {name}")
+                diffs.append(np.abs(a["normalized_mc"] - b["normalized_mc"]).max(1))
+                f_agree.append(float(((a["f0"] > 0) == (b["f0"] > 0)).mean()))
+                n_files += 1
+    d = np.concatenate(diffs)
+    print(f"preprocess-world [{card}]: native child {secs['preprocess-world native']:.1f} s, "
+          f"device child {secs['preprocess-world device']:.1f} s (at once), {n_files} files "
+          f"each; normalized_mc device against native: per-frame largest difference median "
+          f"{np.median(d):.3e} (limit {WORLD_NORM_MEDIAN}), 99th percentile "
+          f"{np.percentile(d, 99):.3e}, max {d.max():.3e}; voicing agreement min "
+          f"{min(f_agree):.4f}", flush=True)
+    check(np.median(d) <= WORLD_NORM_MEDIAN, f"normalized_mc device against native {np.median(d)}")
+
+    said["train"], secs["train --features mcc"] = kids.wait("train_mcc")
+    losses = [float(ln.split("loss ")[1].split()[0]) for ln in said["train"].splitlines()
+              if "Epoch" in ln]
+    have = sorted(os.listdir(os.path.join(run, "checkpoints")))
+    check(len(losses) == 2 and all(map(math.isfinite, losses))
+          and have == [f"DisentangledVAE_VCTK_2{s}" for s in (".msgpack", ".opt.pth", ".pth")],
+          f"train --features mcc: losses {losses}, wrote {have}: {said['train'][-1500:]}")
+    print(f"train --features mcc [{card}]: child {secs['train --features mcc']:.1f} s, 2 "
+          f"epochs at batch 8 of 128 frames x 36 MCCs, losses {losses}; {', '.join(have)}",
+          flush=True)
+
+    # convert-world with both synthesizers and serve --pipeline world, at once
+    common = ["--dataset_fp", world["device"], "--log_dir", run, "--num_utterances", "4"]
+    kids.start("convert_world_native", ["convert-world", *common, "--src_spk", "p225",
+                                        "--trg_spk", "p226"])
+    kids.start("convert_world_device", ["convert-world", *common, "--src_spk", "p227",
+                                        "--trg_spk", "p226", "--synth", "device"])
+    port = free_port()
+    t0 = time.perf_counter()
+    proc = start_serve(["--pipeline", "world", "--dataset_fp", world["device"], "--log_dir",
+                        run, "--max_wait_ms", "500"], port, dev.type,
+                       os.path.join(recipe, "serve_world.log"))
+    up_s = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{port}/convert?trg_spk=p226"
+
+    def post(data):
+        req = urllib.request.Request(url, data=data, method="POST")
+        t_req = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), time.perf_counter() - t_req
+
+    src = [read_wav(p)[0][:16000] for p in paths[:3]]  # 1 s of three p225 wavs
+    bodies = [wav_bytes(src[0], 16000),
+              wav_bytes(resample_poly(torch.from_numpy(src[1]), 16000, 22050).numpy(), 22050),
+              wav_bytes(src[2], 16000)]
+    try:
+        post(bodies[0])  # warm-up: cuDNN and cuFFT plans
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            replies = list(pool.map(post, bodies))
+        serve_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        stop(proc)
+    for (status, data, _), body in zip(replies, bodies):
+        w, sr = parse_wav(data)
+        x, sr_in = parse_wav(body)
+        n = -(-len(x) * 16000 // sr_in)
+        check(status == 200 and sr == 16000 and w.shape == ((n // 80 + 1) * 80,)
+              and np.isfinite(w).all() and w.std() > 1e-3,
+              f"serve --pipeline world: reply {status}, {w.shape} at {sr} Hz for {n} samples")
+    print(f"serve --pipeline world [{card}]: up in {up_s:.1f} s; 3 concurrent POST /convert "
+          f"of 1 s (one at 22.05 kHz) answered 200 with 16 kHz wavs in {serve_s:.3f} s "
+          f"(client clock; latencies {', '.join(f'{r[2]:.3f}' for r in replies)} s); "
+          f"{stats['requests']} requests in {stats['batches']} batches", flush=True)
+
+    gen = os.path.join(run, "generation_world")
+    for m, pair in (("native", "p225_to_p226"), ("device", "p227_to_p226")):
+        said[m], secs[f"convert-world --synth {m}"] = kids.wait(f"convert_world_{m}")
+        files = sorted(os.listdir(os.path.join(gen, pair)))
+        check(len(files) == 4 and said[m].count("wrote ") == 4, f"convert-world {m}: {files}")
+        for f in files:
+            w, sr = read_wav(os.path.join(gen, pair, f))
+            check(sr == 16000 and np.isfinite(w).all() and 0.9 < np.abs(w).max() <= 1.0,
+                  f"convert-world {m}: {f}")
+    for m in ("device", "native"):
+        kids.start(f"eval_mcd_{m}", ["eval-mcd", "--src_dir", os.path.join(wav16, "p225"),
+                                     "--cvt_dir", os.path.join(gen, "p225_to_p226"),
+                                     "--analysis", m])
+    mcd = {}
+    for m in ("device", "native"):
+        said[m], secs[f"eval-mcd --analysis {m}"] = kids.wait(f"eval_mcd_{m}")
+        mcd[m] = {ln.split()[1]: float(ln.split("mcd: ")[1]) for ln in said[m].splitlines()
+                  if ln.startswith("utterance ")}
+    check(len(mcd["device"]) == 4 and mcd["device"].keys() == mcd["native"].keys()
+          and all(map(math.isfinite, mcd["device"].values())), f"eval-mcd printed {mcd}")
+    rel = {k: abs(mcd["device"][k] - v) / v for k, v in mcd["native"].items()}
+    means = {m: float(np.mean(list(mcd[m].values()))) for m in mcd}
+    mean_rel = abs(means["device"] - means["native"]) / means["native"]
+    print(f"eval-mcd [{card}] on convert-world's 4 wavs: --analysis device "
+          f"{json.dumps(mcd['device'])}, native {json.dumps(mcd['native'])}; the mean MCD "
+          f"device {means['device']:.4f}, native {means['native']:.4f}, relative difference "
+          f"{mean_rel:.4f} (limit {WORLD_MCD_RTOL}); per utterance max "
+          f"{max(rel.values()):.4f} (reported)", flush=True)
+    check(mean_rel <= WORLD_MCD_RTOL, f"eval-mcd device against native: mean {means}")
+
+    cpu_thread.join(600)
+    check("res" in cpu_out, "the CPU analysis did not finish")
+    agree, med, mc_err = [], [], 0.0
+    for (f0c, _, _, _, mcc), (f0g, _, _, _, mcg) in zip(cpu_out["res"], card_res):
+        both = (f0c > 0) & (f0g > 0)
+        agree.append(float(((f0c > 0) == (f0g > 0)).mean()))
+        med.append(float(np.median(np.abs(f0g[both] - f0c[both]) / f0c[both])))
+        mc_err = max(mc_err, float(np.abs(mcg - mcc).max() / np.ptp(mcc)))
+    print(f"harvest_batch card vs CPU [{card}] on the {len(wavs)} wavs: voicing agreement "
+          f"min {min(agree):.4f} (limit {WORLD_AGREE_MIN}), median relative error max "
+          f"{max(med):.3e} (limit {WORLD_F0_MEDIAN}); world_decompose_batch mc max err "
+          f"{mc_err:.3e} of its range (limit {WORLD_MC_RANGE}); the CPU run {cpu_out['s']:.1f} s "
+          f"beside the children", flush=True)
+    check(min(agree) >= WORLD_AGREE_MIN and max(med) <= WORLD_F0_MEDIAN,
+          f"Harvest card against CPU: agreement {min(agree)}, median {max(med)}")
+    check(mc_err <= WORLD_MC_RANGE, f"world_decompose_batch mc card against CPU {mc_err}")
+    print(f"WORLD children [{card}] (seconds, start to exit): "
+          f"{json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -2607,7 +2911,10 @@ def main() -> int:
         cond = det.upsample(frames).contiguous()
     # float32 first (the fine check), then bf16: the main path's weights,
     # whose numbers go into the report
+    full_cond = cond
     for dtype, atol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+        cond = (full_cond[:, :F32_MAIN_STEPS].contiguous() if dtype == torch.float32
+                else full_cond)
         packed = ws.pack_wavenet_params(det, dtype, dev)
         checked, draws, _ = ws.wavenet_generate_checked(packed, cond, 0, True)
         check(bool((draws == checked[None]).all()), f"{dtype}: the blocks' draws disagree")
@@ -2862,9 +3169,13 @@ def main() -> int:
 
     # 13. the GE2E speaker encoder and the AutoVC baseline
     speaker_phase(card, dev, recipe.name)
+    phase_done(13)
+
+    # 14. the WORLD route, on phase 10's corpus
+    world_phase(card, dev, recipe.name)
     recipe.cleanup()
     work.cleanup()
-    phase_done(13)
+    phase_done(14)
 
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's

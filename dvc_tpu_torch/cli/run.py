@@ -1,5 +1,6 @@
 """CLI of the port: preprocess / train / train-fs / convert / eval-mcd / serve
-/ vocode / train-vocoder.
+/ vocode / train-vocoder / train-speaker / embed / eval-eer / train-autovc /
+preprocess-world / convert-world.
 
 Same flags and defaults as dvc_tpu's commands (dvc_tpu/cli/run.py), plus
 ``--device {cuda,cpu}`` (default cuda; cuda without a card is an error).
@@ -15,9 +16,12 @@ mask that ``--fs_mask`` reads; ``convert --long_context`` encodes whole
 utterances, and ``convert --analyze`` writes the latent analysis.
 ``train-speaker`` trains the GE2E speaker encoder, ``embed`` and
 ``eval-eer`` use it, and ``train-autovc`` trains the AutoVC baseline (on a
-GE2E encoder's embeddings with ``--encoder_run_id``).  The WORLD route,
-orbax checkpoints and ``eval-mcd --analysis device`` are not ported yet
-and exit with a message; dvc_tpu's WORLD commands are not here yet.
+GE2E encoder's embeddings with ``--encoder_run_id``).  The WORLD route:
+``preprocess-world`` (``--f0 native|device``) writes WORLD features,
+``train --features mcc`` trains the MCC-VAE on them, ``convert-world``
+(``--synth native|device``) converts, ``serve --pipeline world`` serves,
+and ``eval-mcd --analysis device`` scores with the batched device analysis.
+Orbax checkpoints are not ported yet and exit with a message.
 
 Usage (the verify recipe, then serving):
   python -m dvc_tpu_torch.cli.run preprocess <datasets_root> -o <mel_dir> -d VCTK [--no_trim]
@@ -37,6 +41,11 @@ Usage (the verify recipe, then serving):
   python -m dvc_tpu_torch.cli.run eval-eer <run_id> <mel_root> -m <models_dir>
   python -m dvc_tpu_torch.cli.run train-autovc --dataset_fp <mel_dir> --log_dir <run> \\
       [--encoder_run_id <run_id> -m <models_dir>]
+  python -m dvc_tpu_torch.cli.run preprocess-world <wav_root> -o <world_dir> [--f0 device]
+  python -m dvc_tpu_torch.cli.run train --features mcc --dataset_fp <world_dir> --log_dir <run>
+  python -m dvc_tpu_torch.cli.run convert-world --dataset_fp <world_dir> --log_dir <run> \\
+      --src_spk A --trg_spk B [--synth device] [--fs_mask <feature_mask.npz>]
+  python -m dvc_tpu_torch.cli.run serve --pipeline world --dataset_fp <world_dir> --log_dir <run>
 """
 
 from __future__ import annotations
@@ -102,12 +111,13 @@ def _add_vocoder_args(p: argparse.ArgumentParser) -> None:
 
 def _config_from_args(args):
     from dvc_tpu_torch.config import Config, LossConfig, TrainConfig, VAEConfig
-    if args.features == "mcc":
-        raise SystemExit(f"--features mcc (the WORLD route) is {NOT_PORTED}")
+    mcc = args.features == "mcc"
     if args.samples_length is None:
-        args.samples_length = 64  # the reference's mel crop (train.py:53)
+        # the reference's crops: 64 mel frames (train.py:53), 128 MCC frames
+        # (SpeechDatasetMCC2), so train and convert-world agree unasked
+        args.samples_length = 128 if mcc else 64
     vae = VAEConfig(latent_dim=args.latent_size, speaker_size=args.speaker_size,
-                    frames=args.samples_length)
+                    frames=args.samples_length, num_mels=args.num_mcep if mcc else 80)
     loss = LossConfig(mse_cof=args.mse_cof, kl_cof=args.kl_cof, style_cof=args.style_cof,
                       beta_cof=args.beta_cof, adv_cof=args.adv_cof, adv_lr=args.adv_lr,
                       adv_mode=args.adv_mode)
@@ -177,14 +187,14 @@ def cmd_preprocess(args) -> int:
 
 
 def cmd_train(args) -> int:
-    from dvc_tpu_torch.data.dataset import PairedMelDataset
+    from dvc_tpu_torch.data.dataset import PairedMCCDataset, PairedMelDataset
     from dvc_tpu_torch.train.trainer import Trainer, unported_settings
     cfg = _config_from_args(args)
     bad = unported_settings(cfg)
     if bad:
         raise SystemExit(f"{', '.join(bad)}: {NOT_PORTED}")
-    dataset = PairedMelDataset(args.dataset_fp, samples_length=args.samples_length,
-                               seed=args.seed)
+    ds_cls = PairedMCCDataset if args.features == "mcc" else PairedMelDataset
+    dataset = ds_cls(args.dataset_fp, samples_length=args.samples_length, seed=args.seed)
     if cfg.loss.adv_cof > 0:
         # the adversary's classifier is as wide as the corpus has speakers
         cfg = cfg.replace(loss=dataclasses.replace(
@@ -217,12 +227,14 @@ def _serve_forever(server, what: str) -> None:
 
 def cmd_serve(args) -> int:
     from dvc_tpu_torch.serve import (ConversionService, ProfileTransferService,
-                                     make_http_server)
+                                     WorldConversionService, make_http_server)
     if args.pipeline == "world":
         if args.profile_transfer:
             raise SystemExit("--profile_transfer serves the mel pipeline only; "
                              "drop --pipeline world")
-        raise SystemExit(f"--pipeline world is {NOT_PORTED}")
+        # the WORLD route serves the MCC-VAE; dataset_fp is a
+        # preprocess-world directory
+        args.features = "mcc"
     cfg = _config_from_args(args)
     if args.profile_transfer:
         # the model-free DSP route: no checkpoint; the vocoder is the only
@@ -234,6 +246,16 @@ def cmd_serve(args) -> int:
         _serve_forever(make_http_server(service, args.host, args.port),
                        f"{len(service.speakers())} target speakers, profile-transfer "
                        f"DSP route, device {args.device}")
+        return 0
+    if args.pipeline == "world":
+        _, fs_mask = _load_fs_mask(args, cfg)
+        service = WorldConversionService(cfg, _load_model(args, cfg), args.dataset_fp,
+                                         sample_rate=cfg.audio.sample_rate,
+                                         max_wait_ms=args.max_wait_ms, fs_mask=fs_mask,
+                                         device=args.device)
+        _serve_forever(make_http_server(service, args.host, args.port),
+                       f"{len(service.speakers())} target speakers, WORLD pipeline, "
+                       f"device {args.device}")
         return 0
     vocoder = _make_cli_vocoder(args, cfg)  # a bad vocoder choice exits before any load
     _, fs_mask = _load_fs_mask(args, cfg)
@@ -311,6 +333,73 @@ def _analyze(args, cfg, model, gen_dir, raw, fs_mask) -> None:
                      cfg.vae.speaker_size)
         np.savez(os.path.join(gen_dir, "fs_mask.npz"), sigmoid_mask=raw, binary_mask=fs_mask)
     print(f"latent analysis artifacts -> {gen_dir}")
+
+
+def cmd_preprocess_world(args) -> int:
+    """WORLD features of every speaker directory under dataset_fp
+    (dvc_tpu's preprocess-world)."""
+    from dvc_tpu_torch.data.world_preprocess import preprocess_world_dataset
+    for s in preprocess_world_dataset(args.dataset_fp, args.out_dir, num_mcep=args.num_mcep,
+                                      f0_mode=args.f0, device=args.device):
+        if s["n_files"] == 0:
+            print(f"{s['speaker']}: no wavs, skipped")
+            continue
+        print(f"{s['speaker']}: {s['n_files']} files, "
+              f"logf0 {s['logf0_mean']:.3f}±{s['logf0_std']:.3f}")
+    return 0
+
+
+def cmd_convert_world(args) -> int:
+    """WORLD-feature conversion (dvc_tpu's convert-world,
+    dvc_tpu/cli/run.py:566-625): the latent swap on normalized MCCs, the
+    log-Gaussian pitch transform and WORLD synthesis, natively per
+    utterance or (--synth device) batched on the device.  Writes
+    <log_dir>/generation_world/<src>_to_<trg>/convert_<src>_to_<trg>_<utt>.wav."""
+    from glob import glob
+
+    import numpy as np
+
+    from dvc_tpu_torch.convert.world_conversion import (world_convert_corpus,
+                                                        world_convert_utterance)
+    from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+    from dvc_tpu_torch.utils.wavio import write_wav
+    args.features = "mcc"
+    cfg = _config_from_args(args)
+    use_exact_float32()  # the VAE in float32, never TF32
+    model = _load_model(args, cfg).to(resolve_device(args.device)).eval()
+
+    def load(path):
+        with np.load(path) as z:
+            return dict(z)
+
+    trg_stats = load(os.path.join(args.dataset_fp, f"mcep_{args.trg_spk}.npz"))
+    src_logf0 = load(os.path.join(args.dataset_fp, f"log_f0_{args.src_spk}.npz"))
+    trg_logf0 = load(os.path.join(args.dataset_fp, f"log_f0_{args.trg_spk}.npz"))
+    src_fps = sorted(glob(os.path.join(args.dataset_fp, args.src_spk, "*.npz")))
+    # sorted, so --seed picks the same target utterance on any filesystem
+    trg_fps = sorted(glob(os.path.join(args.dataset_fp, args.trg_spk, "*.npz")))
+    rng = np.random.RandomState(args.seed)
+    out_dir = os.path.join(args.log_dir, "generation_world", f"{args.src_spk}_to_{args.trg_spk}")
+    os.makedirs(out_dir, exist_ok=True)
+    n = min(args.num_utterances, len(src_fps))
+    src_npzs = [load(src_fps[i]) for i in range(n)]
+    trg_npzs = [load(trg_fps[rng.choice(len(trg_fps))]) for _ in range(n)]
+    src_lf0 = {"mean": float(src_logf0["mean"]), "std": float(src_logf0["std"])}
+    trg_lf0 = {"mean": float(trg_logf0["mean"]), "std": float(trg_logf0["std"])}
+    _, fs_mask = _load_fs_mask(args, cfg)
+    if args.synth == "device":
+        wavs = world_convert_corpus(model, src_npzs, trg_npzs, trg_stats, src_lf0, trg_lf0,
+                                    frames=args.samples_length, fs_mask=fs_mask)
+    else:
+        wavs = [world_convert_utterance(model, s, t, trg_stats, src_lf0, trg_lf0,
+                                        frames=args.samples_length, fs_mask=fs_mask)
+                for s, t in zip(src_npzs, trg_npzs)]
+    for i, wav in enumerate(wavs):
+        utt = os.path.splitext(os.path.basename(src_fps[i]))[0]
+        out = os.path.join(out_dir, f"convert_{args.src_spk}_to_{args.trg_spk}_{utt}.wav")
+        write_wav(out, wav, 16_000)
+        print(f"wrote {out}")
+    return 0
 
 
 def cmd_train_fs(args) -> int:
@@ -646,12 +735,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--src_dir", required=True)
     p.add_argument("--cvt_dir", required=True)
     p.add_argument("--analysis", choices=["native", "device"], default="native",
-                   help="device (dvc_tpu's corpus-batched device WORLD analysis) is "
-                        "not ported yet")
+                   help="native: Harvest and D4C in the C++ engine a wav at a time; "
+                        "device: the corpus-batched WORLD analysis on --device")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where CheapTrick and the mel-cepstrum run; Harvest, D4C and "
-                        "DTW run on the host")
+                   help="where CheapTrick and the mel-cepstrum run (and Harvest with "
+                        "--analysis device); DTW runs on the host")
     p.set_defaults(fn=cmd_eval_mcd)
+
+    p = sub.add_parser("preprocess-world")
+    p.add_argument("dataset_fp")
+    p.add_argument("-o", "--out_dir", required=True)
+    p.add_argument("--num_mcep", type=int, default=36)
+    p.add_argument("--f0", choices=("native", "device"), default="native",
+                   help="native: the C++ Harvest/D4C a wav at a time; device: the "
+                        "batched Harvest, CheapTrick and mel-cepstrum on --device")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.set_defaults(fn=cmd_preprocess_world)
 
     p = sub.add_parser("train")
     _add_model_args(p)
@@ -679,6 +778,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the per-speaker latent analysis (and the FS mask "
                         "with --fs_mask) under <log_dir>/generation")
     p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("convert-world")
+    _add_model_args(p)
+    p.add_argument("--src_spk", required=True)
+    p.add_argument("--trg_spk", required=True)
+    p.add_argument("--num_utterances", type=int, default=2)
+    p.add_argument("--synth", choices=["native", "device"], default="native",
+                   help="native: the C++ pulse synthesis a wav at a time; device: "
+                        "the batched synthesis on --device")
+    _add_fs_args(p)
+    p.set_defaults(fn=cmd_convert_world)
 
     p = sub.add_parser("vocode")
     p.add_argument("mel_npy")

@@ -1,5 +1,5 @@
 """Host-side paired-utterance data pipeline (a copy of
-dvc_tpu/data/dataset.py:28-156,187-192; the port imports nothing of
+dvc_tpu/data/dataset.py:28-156,187-211; the port imports nothing of
 dvc_tpu).
 
 Reference preprocessing/dataset.py:53-117 (SpeechDatasetGVAE): per speaker,
@@ -8,7 +8,8 @@ utt2) same-speaker pairs; each item random-crops (or zero-pads) both mels
 to ``samples_length`` frames; ``shuffle_data()`` re-pairs everything between
 epochs.  One seed gives the same pairs, crops and batch order as dvc_tpu's.
 Batches are contiguous numpy arrays; the trainer moves them to the device.
-The WORLD-feature variant (PairedMCCDataset) comes with the WORLD path.
+PairedMCCDataset is the WORLD-feature (.npz) variant (reference
+SpeechDatasetMCC2, dataset.py:126-247).
 """
 
 from __future__ import annotations
@@ -159,3 +160,24 @@ class PairedMelDataset(_PairedDatasetBase):
 
     pattern = "*.npy"
     samples_length = 64
+
+
+class PairedMCCDataset(_PairedDatasetBase):
+    """WORLD MCC (.npz) pairs: reference SpeechDatasetMCC2 (dataset.py:
+    126-247).  Stored transposed ((T, n_mcc) on disk); normalized_mc is
+    what trains."""
+
+    pattern = "*.npz"
+    samples_length = 128
+
+    def _read(self, fp: str) -> np.ndarray:
+        with np.load(fp) as data:
+            return data["normalized_mc"].T  # (n_mcc, T)
+
+    def _crop_or_pad(self, mc: np.ndarray) -> np.ndarray:
+        t = mc.shape[1]
+        L = self.samples_length
+        if t <= L:  # the reference's MCC variant pads at <= (dataset.py:179)
+            return np.pad(mc, ((0, 0), (0, L - t)))
+        start = self._rng.randint(0, t - L)
+        return mc[:, start:start + L]

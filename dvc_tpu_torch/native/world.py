@@ -1,12 +1,14 @@
-"""ctypes bindings for the native WORLD-analysis engine (dvc_world.cpp),
-the port's copy of the analysis half of dvc_tpu/native/world.py.
+"""ctypes bindings for the native WORLD engine (dvc_world.cpp), the port's
+copy of dvc_tpu/native/world.py.
 
 harvest() and d4c() are the algorithm-faithful equivalents of
 pyworld.harvest and pyworld.d4c (reference
 preprocessing/WORLD_processing.py:33-35), implemented from the published
-Morise papers.  Built into build/native/ at first use; a failed build
-raises (dvc_tpu falls back to a JAX NCCF tracker then, with other numbers).
-DIO and the synthesizer come with the WORLD conversion path.
+Morise papers, and synthesize() is the WORLD-faithful synthesizer in the
+role of pyworld.synthesize (WORLD_processing.py:99-106).  Built into
+build/native/ at first use; a failed build raises (dvc_tpu falls back to a
+JAX NCCF tracker and its device synthesis then, with other numbers).  DIO
+is not bound: no command of dvc_tpu reaches it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dvc_d4c.restype = ctypes.c_int
     lib.dvc_d4c.argtypes = [_F, ctypes.c_long, ctypes.c_int, _D, ctypes.c_int,
                             ctypes.c_double, ctypes.c_int, ctypes.c_double, _D]
+    lib.dvc_synthesis.restype = ctypes.c_int
+    lib.dvc_synthesis.argtypes = [_D, ctypes.c_int, _D, _D, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_double, ctypes.c_long, ctypes.c_ulonglong, _D]
 
 
 def _lib() -> ctypes.CDLL:
@@ -74,3 +79,31 @@ def d4c(wav: np.ndarray, f0: np.ndarray, fs: int, frame_period: float,
     if got != 0:
         raise RuntimeError(f"native d4c failed ({got})")
     return out
+
+
+def synthesize(f0: np.ndarray, sp: np.ndarray, ap: np.ndarray, fs: int,
+               frame_period: float = 5.0, y_length: int | None = None,
+               seed: int = 0) -> np.ndarray:
+    """WORLD-faithful synthesis (pyworld.synthesize contract): f0 (N,), sp
+    and ap (N, fft_size//2+1), the CheapTrick power envelope and the D4C
+    aperiodicity -> float32 waveform of ``y_length`` samples (one frame
+    period a frame by default).  Minimum-phase responses at each glottal
+    pulse, placed at fractional-pitch instants, with the periodic and
+    aperiodic power split per bin; deterministic for a seed at any thread
+    count."""
+    lib = _lib()
+    sp = np.ascontiguousarray(sp, np.float64)
+    ap = np.ascontiguousarray(ap, np.float64)
+    f0 = np.ascontiguousarray(f0, np.float64)
+    n_frames, n_freq = sp.shape
+    if ap.shape != sp.shape or len(f0) != n_frames:
+        raise ValueError(f"shape mismatch: f0 {f0.shape}, sp {sp.shape}, ap {ap.shape}")
+    if y_length is None:
+        y_length = int(n_frames * frame_period * fs / 1000.0)
+    y = np.zeros(y_length, np.float64)
+    got = lib.dvc_synthesis(f0.ctypes.data_as(_D), n_frames, sp.ctypes.data_as(_D),
+                            ap.ctypes.data_as(_D), 2 * (n_freq - 1), fs, frame_period,
+                            y_length, seed, y.ctypes.data_as(_D))
+    if got != 0:
+        raise RuntimeError(f"native synthesis failed ({got})")
+    return y.astype(np.float32)

@@ -1,5 +1,5 @@
 """HTTP voice-conversion service with cross-request micro-batching (port of
-dvc_tpu/serve.py's mel route).
+dvc_tpu/serve.py).
 
   * target-speaker styles are computed once per speaker (mean style_mu over
     all of the speaker's 64-frame chunks) and cached on the device;
@@ -20,9 +20,10 @@ Endpoints (stdlib http.server):
                                        device); reply: wav bytes (npy bytes of
                                        the mel without a vocoder)
 
-Two services share the queue and worker: ConversionService (the VAE latent
-swap) and ProfileTransferService (``serve --profile_transfer``, the
-model-free DSP route).  The WORLD route is not ported yet.
+Three services share the queue and worker: ConversionService (the VAE latent
+swap), ProfileTransferService (``serve --profile_transfer``, the model-free
+DSP route) and WorldConversionService (``serve --pipeline world``, the
+MCC-VAE on WORLD features, analyzed and synthesized on the device).
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ from dvc_tpu_torch.ops.audio import resample_poly
 from dvc_tpu_torch.ops.chunk import chunk_mel, num_chunks
 from dvc_tpu_torch.ops.mel import melspectrogram
 from dvc_tpu_torch.ops.stft import num_frames
+from dvc_tpu_torch.ops.world import (cheaptrick_fft_size, logf0_statistics, mc2sp, mcepalpha,
+                                     pitch_conversion, synthesize_batch, world_decompose_batch)
 from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
 from dvc_tpu_torch.utils.wavio import parse_wav, wav_bytes
 
@@ -65,7 +68,7 @@ def _bucket(n: int) -> int:
 
 @dataclass
 class _Request:
-    payload: np.ndarray                   # mel (80, T)
+    payload: np.ndarray                   # mel (80, T), or a 16 kHz wav (N,)
     trg_spk: str
     done: threading.Event = field(default_factory=threading.Event)
     result: np.ndarray | None = None
@@ -77,7 +80,11 @@ class _Request:
 class _MicroBatchService:
     """Queue and worker shared by the services: concurrent requests drain
     into one batch (submit/_drain/_run); subclasses implement
-    _process(batch).  A request's cost is its number of 64-frame chunks."""
+    _process(batch).  A request's cost is its number of 64-frame chunks.
+    ``input_kind`` is what a request carries: its mel, or its wav at the
+    model's sample rate."""
+
+    input_kind = "mel"
 
     def _start(self, cfg: Config, dataset_fp: str, vocoder, device,
                max_batch_chunks: int, max_wait_ms: float, max_queue: int):
@@ -338,18 +345,179 @@ class ProfileTransferService(_MicroBatchService):
             self._finish(owners, self._vocode(mels), n)
 
 
+class WorldConversionService(_MicroBatchService):
+    """``serve --pipeline world``: the MCC/WORLD conversion route, batched
+    (dvc_tpu/serve.py:392-603).  Every stage of a drained micro-batch runs
+    on ``device``:
+
+      16 kHz wavs -> the batched WORLD analysis (world_decompose_batch:
+      Harvest, CheapTrick, the mel-cepstrum) -> each utterance normalized
+      by its own MCC statistics -> one chunk-axis VAE pass (the target's
+      cached style latent, the source's content per chunk; decode only, no
+      postnet or clamp, as convert_mcc) -> the target speaker's
+      de-normalization and mc2sp -> the log-Gaussian pitch transform (the
+      source's log-f0 statistics fitted on the request itself, since the
+      client's speaker is unknown) -> synthesize_batch -> peak
+      normalization.
+
+    dataset_fp is a preprocess-world output directory: per-speaker npz
+    subdirectories and the log_f0_<spk>.npz / mcep_<spk>.npz statistics.
+    A request's cost is one utterance; a drain holds up to max_batch_utts."""
+
+    input_kind = "wav"
+
+    def __init__(self, cfg: Config, model: DisentangledVAE, dataset_fp: str,
+                 sample_rate: int = 16_000, frame_period: float = 5.0,
+                 max_batch_utts: int = 16, max_wait_ms: float = 10.0, max_queue: int = 256,
+                 fs_mask: np.ndarray | None = None, device: str | torch.device = "cuda"):
+        dev = resolve_device(device)
+        use_exact_float32()  # the VAE in float32, never TF32
+        self.model = model.to(dev).eval()
+        self.fs = sample_rate
+        self.frame_period = frame_period
+        self._n_mcep = cfg.vae.num_mels
+        self._mask = None if fs_mask is None else torch.as_tensor(
+            np.asarray(fs_mask, np.float32), device=dev)
+        self._asset_cache: dict[str, tuple] = {}
+        self._asset_lock = threading.Lock()
+        self._start(cfg, dataset_fp, None, dev, max_batch_utts, max_wait_ms, max_queue)
+        self.output_is_wav = True  # the synthesis is built in
+
+    def _cost(self, req: _Request) -> int:
+        return 1
+
+    @torch.inference_mode()
+    def _convert(self, chunks: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
+        """chunks (N, n_mcep, F), styles (N, D) -> decoded (N, n_mcep, F):
+        the plain swap takes the target's mean style_mu, the FS-masked one
+        the target's mean full latent on every masked dim."""
+        style_mu, _, content_mu, _ = self.model.encode(chunks)
+        if self._mask is None:
+            z = torch.cat([styles, content_mu], -1)
+        else:
+            z = torch.cat([style_mu, content_mu], -1) * (1.0 - self._mask) + styles * self._mask
+        return self.model.decode(z)
+
+    @torch.inference_mode()
+    def _style_of(self, chunks: torch.Tensor) -> torch.Tensor:
+        style_mu, _, content_mu, _ = self.model.encode(chunks)
+        if self._mask is None:
+            return style_mu.mean(0)
+        return torch.cat([style_mu, content_mu], -1).mean(0)
+
+    def target_assets(self, spk: str):
+        """(style latent, mcep statistics, log-f0 statistics) of a target
+        speaker, cached."""
+        with self._asset_lock:
+            hit = self._asset_cache.get(spk)
+            if hit is not None:
+                return hit
+        fps = sorted(glob(os.path.join(self.dataset_fp, spk, "*.npz")))
+        if not fps:
+            raise KeyError(f"unknown target speaker {spk!r}")
+        chunks = []
+        for fp in fps:
+            with np.load(fp) as z:
+                chunks.append(chunk_mel(torch.as_tensor(z["normalized_mc"].T, dtype=torch.float32,
+                                                        device=self.device), self._frames))
+        style = self._style_of(torch.cat(chunks, 0))
+        with np.load(os.path.join(self.dataset_fp, f"mcep_{spk}.npz")) as z:
+            mcep = dict(z)
+        with np.load(os.path.join(self.dataset_fp, f"log_f0_{spk}.npz")) as z:
+            logf0 = dict(z)
+        assets = (style, mcep, logf0)
+        with self._asset_lock:
+            self._asset_cache[spk] = assets
+        return assets
+
+    def _process(self, batch: list[_Request]):
+        live = []
+        for r in batch:
+            if r.abandoned:
+                continue
+            try:
+                live.append((r, self.target_assets(r.trg_spk)))
+            except Exception as e:
+                self._fail_request(r, e)
+        if not live:
+            return
+
+        # 1. the batched analysis
+        feats = world_decompose_batch([np.asarray(r.payload, np.float32) for r, _ in live],
+                                      self.fs, self.frame_period, num_mcep=self._n_mcep,
+                                      keep_sp_ap=False, device=self.device)
+
+        # 2. each utterance normalized by its own statistics and chunked ->
+        # one VAE batch, padded to a power of two
+        all_chunks, styles, spans = [], [], []
+        offset = 0
+        for (r, (style, _, _)), (f0, _, _, _, mc) in zip(live, feats):
+            mean = mc.mean(axis=0, keepdims=True)
+            std = np.maximum(mc.std(axis=0, keepdims=True), 1e-6)
+            norm = ((mc - mean) / std).T.astype(np.float32)  # (n_mcep, T)
+            c = chunk_mel(torch.as_tensor(norm, device=self.device), self._frames)
+            spans.append((offset, c.shape[0], norm.shape[1], f0))
+            offset += c.shape[0]
+            all_chunks.append(c)
+            styles.append(style[None, :].expand(c.shape[0], -1))
+        chunks = torch.cat(all_chunks, 0)
+        style_arr = torch.cat(styles, 0)
+        n = chunks.shape[0]
+        nb = _bucket(max(n, 1))
+        if nb > n:  # padded chunks are discarded below
+            chunks = torch.cat([chunks, chunks.new_zeros((nb - n,) + chunks.shape[1:])])
+            style_arr = torch.cat([style_arr, style_arr.new_zeros(nb - n, style_arr.shape[-1])])
+        out = self._convert(chunks, style_arr)[:n].cpu().numpy()
+
+        # 3. the target's de-normalization, mc2sp, the pitch transform, and
+        # one batched synthesis
+        alpha, fft_size = mcepalpha(self.fs), cheaptrick_fft_size(self.fs)
+        f0s, sps, aps, owners = [], [], [], []
+        for (r, (_, mcep_stats, trg_lf0)), (start, count, t, f0) in zip(live, spans):
+            conv = out[start:start + count]                 # (count, n_mcep, F)
+            conv = conv.transpose(1, 0, 2).reshape(conv.shape[1], -1)[:, :t]
+            mc = conv.T * np.asarray(mcep_stats["std"]).T + np.asarray(mcep_stats["mean"]).T
+            with torch.inference_mode():
+                sp = mc2sp(torch.as_tensor(mc.astype(np.float32), device=self.device), alpha,
+                           fft_size).cpu().numpy()
+            voiced = f0 > 0
+            f0_conv = np.zeros_like(f0)
+            if voiced.any():
+                src_mean, src_std = logf0_statistics(f0)
+                if np.isfinite(src_std) and src_std > 1e-6:
+                    f0_conv[voiced] = pitch_conversion(f0[voiced], src_mean, src_std,
+                                                       float(trg_lf0["mean"]),
+                                                       float(trg_lf0["std"]))
+                else:  # a monotone input: the target's mean pitch
+                    f0_conv[voiced] = np.exp(float(trg_lf0["mean"]))
+            ap = np.full((t, sp.shape[1]), 0.2, np.float32)
+            ap[~voiced[:t]] = 1.0 - 1e-12
+            f0s.append(f0_conv[:t])
+            sps.append(sp[:t])
+            aps.append(ap)
+            owners.append(r)
+        wavs = synthesize_batch(f0s, sps, aps, self.fs, self.frame_period, device=self.device)
+        results = []
+        for w in wavs:
+            peak = np.abs(w).max()
+            results.append(w / peak * 0.95 if peak > 1e-8 else w)
+        self._finish(owners, results, n)
+
+
 def make_http_server(service: _MicroBatchService, host: str = "127.0.0.1",
                      port: int = 7860) -> ThreadingHTTPServer:
     audio_cfg = service.cfg.audio
 
-    def mel_fn(wav: np.ndarray, sr: int) -> np.ndarray:
-        # resample to the model's rate on the service's device, bucket the
-        # sample count to a power of two (zero-padding extends the framing's
-        # own zero padding, so the first num_frames(orig) frames are
-        # unchanged), then crop to the true frame count
+    def payload_of(wav: np.ndarray, sr: int) -> np.ndarray:
+        # resample to the model's rate on the service's device; for a mel,
+        # bucket the sample count to a power of two (zero-padding extends
+        # the framing's own zero padding, so the first num_frames(orig)
+        # frames are unchanged), then crop to the true frame count
         with torch.inference_mode():
             x = resample_poly(torch.from_numpy(wav).to(service.device), sr,
                               audio_cfg.sample_rate)
+            if service.input_kind == "wav":
+                return x.cpu().numpy()
             n = x.shape[-1]
             x = torch.nn.functional.pad(x, (0, _bucket(max(n, audio_cfg.hop_size)) - n))
             mel = melspectrogram(x, audio_cfg)
@@ -415,7 +583,7 @@ def make_http_server(service: _MicroBatchService, host: str = "127.0.0.1",
                 self._json(400, {"error": str(e)})
                 return
             try:
-                out = service.submit(mel_fn(np.asarray(wav, np.float32), sr), trg)
+                out = service.submit(payload_of(np.asarray(wav, np.float32), sr), trg)
             except KeyError as e:
                 # speaker dir listed but empty, or removed after the check
                 self._json(404, {"error": str(e)})

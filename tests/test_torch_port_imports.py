@@ -38,7 +38,8 @@ MODULES = [
     "dvc_tpu_torch.data.speaker_dataset", "dvc_tpu_torch.models.speaker_encoder",
     "dvc_tpu_torch.train.speaker_trainer", "dvc_tpu_torch.models.speaker_inference",
     "dvc_tpu_torch.utils.visualizations", "dvc_tpu_torch.models.autovc",
-    "dvc_tpu_torch.train.autovc_trainer",
+    "dvc_tpu_torch.train.autovc_trainer", "dvc_tpu_torch.ops.harvest",
+    "dvc_tpu_torch.data.world_preprocess", "dvc_tpu_torch.convert.world_conversion",
 ]
 
 FORBIDDEN_SO = os.sep + os.path.join("dvc_tpu", "native") + os.sep

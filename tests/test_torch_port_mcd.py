@@ -21,6 +21,8 @@ formula).  The port keeps the sum in float64.  So the port is held:
   * freqt and sp2mc on the same inputs: within 1e-5 of the output's max.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,7 +202,9 @@ def test_mcd_from_mcc_edge_cases():
 
 def test_evaluate_mcd_wav_against_dvc_tpu():
     """Per-utterance MCD on synthetic pairs within 1e-3 dB of dvc_tpu's, and
-    exactly 0.0 for identical wavs; the thread pool is used (4 pairs)."""
+    exactly 0.0 for identical wavs; the thread pool is used (4 pairs).  The
+    batched device analysis (world_decompose_batch) within 1e-3 dB of
+    dvc_tpu's device analysis, 0.0 for identical wavs too."""
     src = [utterance(s, 0.1, 1.5) for s in (5, 6, 7)]
     trg = [utterance(s + 10, 0.1, 1.5 + 0.1 * s) for s in (5, 6)] + [src[2]]
     want = jmcd.evaluate_mcd_wav(src, trg)
@@ -208,14 +212,17 @@ def test_evaluate_mcd_wav_against_dvc_tpu():
     assert got[2] == 0.0 and want[2] == 0.0
     assert all(m > 0.5 for m in got[:2])
     np.testing.assert_allclose(got, want, atol=MCD_ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pmcd.evaluate_mcd_wav(src, trg, analysis="device", device="cpu")
+    dev = pmcd.evaluate_mcd_wav(src, trg, analysis="device", device="cpu")
+    assert dev[2] == 0.0
+    np.testing.assert_allclose(dev, jmcd.evaluate_mcd_wav(src, trg, analysis="device"),
+                               atol=MCD_ATOL, rtol=0)
 
 
 def test_cli_eval_mcd(tmp_path, capsys):
     """eval-mcd pairs converter-named and _cv-named wavs to their sources
     as dvc_tpu's command does, prints each MCD and the mean; sources
-    against themselves give 0.0; --analysis device stops unported."""
+    against themselves give 0.0; --analysis device prints the MCDs of
+    evaluate_mcd_wav(analysis="device") for the same pairs."""
     src, cvt = tmp_path / "src", tmp_path / "cvt" / "p1_to_p2"
     (src / "p1").mkdir(parents=True)
     cvt.mkdir(parents=True)
@@ -233,6 +240,13 @@ def test_cli_eval_mcd(tmp_path, capsys):
     mcds = {ln.split()[1]: float(ln.split("mcd: ")[1]) for ln in out if "mcd:" in ln}
     assert mcds["p1_001_cv.wav"] == 0.0 and mcds["convert_p1_to_p2_000.wav"] > 0
     assert out[-1].startswith("MCD value between two speaker: ")
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["eval-mcd", "--src_dir", str(src), "--cvt_dir", str(cvt),
-                  "--analysis", "device", "--device", "cpu"])
+    assert cli.main(["eval-mcd", "--src_dir", str(src), "--cvt_dir", str(tmp_path / "cvt"),
+                     "--analysis", "device", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    dev = {ln.split()[1]: float(ln.split("mcd: ")[1]) for ln in out if "mcd:" in ln}
+    assert dev.keys() == mcds.keys() and dev["p1_001_cv.wav"] == 0.0
+    from dvc_tpu_torch.utils.wavio import read_wav
+    want = pmcd.evaluate_mcd_wav([read_wav(a)[0] for a, _ in pairs],
+                                 [read_wav(b)[0] for _, b in pairs], analysis="device",
+                                 device="cpu")
+    assert [dev[os.path.basename(b)] for _, b in pairs] == pytest.approx(want, abs=1e-9)
