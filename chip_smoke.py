@@ -65,10 +65,14 @@ Phases; any failure exits non-zero before a result line is printed:
             (ii) each kernel against its plain twin there, relative to the
             reference's max (float32 1e-4, bf16 5e-3) where the output does
             not underflow; (iii) the checks that can fail, at T = 65, which
-            reads every tap (P1 with a weight of larger gain), where a kernel
-            with layer 23 at half its dilation (P1 static and compute: a
-            zeroed w column), and P2 and P3 with each other's cond rule (also
-            at T = 1000), must be rejected;
+            reads every tap (P1 with a weight of larger gain), at B in {1, 3,
+            8, 9} (P3 at 8), where a kernel with layer 23 at half its
+            dilation (P1 static and compute: a zeroed w column), and P2 and P3
+            with each other's cond rule (also at T = 1000), must be rejected;
+            the plans of P1's cluster kernel and of body_mma (P2, P4) on the
+            card against their wrappers' own; tools/ablate_body once (P2's
+            split by variant); tools/bench_sync once (clusters at once and
+            us a cluster and a grid barrier);
   8. train  the VAE training path at the full VAEConfig (no hand kernel:
             cuDNN/cuBLAS, float32, TF32 off): Trainer.run_training at
             training.sh's batch 8 on a synthetic corpus made as in phase 3
@@ -262,6 +266,7 @@ PROBE_F32_TOL = 1e-4   # P1, float32, relative to max |ref|: the kernel's other 
 PROBE_BF16_TOL = 5e-3  # P2-P4, bf16 ring and gate, relative to max |ref|: flipped bf16
                        # roundings read up to 2.4e-3, corrupted kernels 1.2e-2 and more
 SHORT_T = 65           # probe checks that can fail: reads every tap (2 x 32 + 1)
+PROBE_CHECK_BS = (1, 3, 8, 9)  # batch sizes of those checks: P1's clusters, P2/P4's n-tiles
 DECAYED = 1e-12        # max |ref| under which a probe's own output has decayed (P1 at
                        # T = 2000, P4 stage 0 at T = 1000): reported there, held at SHORT_T
 
@@ -539,6 +544,7 @@ def probes(card, dev):
 
     # the weights of the main path, drawn again for the checks
     dil = _common.geometry(p1.LAYERS)[0]
+    probe_plans(card, dev, p1, pb, dil)
     bad_dil = dil.copy()
     bad_dil[23] //= 2  # the last layer reads its taps at half its dilation
     w_p1 = torch.from_numpy(p1.default_w()).to(dev)
@@ -546,18 +552,18 @@ def probes(card, dev):
     w_b2 = p4.prepare(p4.weights(), dev)
 
     def runs(kind, key):
-        """(kernel fn, plain fn, tol) of a probe variant: fn(w, T, dil) ->
+        """(kernel fn, plain fn, tol) of a probe variant: fn(w, T, dil, B) ->
         (out, skip), skip None for P1."""
         if kind == "taps":
-            return (lambda w, T, dil: (p1.taps(key, w, B=B, T=T, dil=dil), None),
-                    lambda w, T, dil: (p1.taps_plain(key, w, B=B, T=T, dil=dil), None),
+            return (lambda w, T, dil, B: (p1.taps(key, w, B=B, T=T, dil=dil), None),
+                    lambda w, T, dil, B: (p1.taps_plain(key, w, B=B, T=T, dil=dil), None),
                     PROBE_F32_TOL)
         if kind in ("resident", "streamed"):
             kern, plain = getattr(pb, kind), getattr(pb, f"{kind}_plain")
-            return (lambda w, T, dil, **kw: kern(w, B=B, T=T, dil=dil, **kw),
-                    lambda w, T, dil: plain(w, B=B, T=T, dil=dil), PROBE_BF16_TOL)
-        return (lambda w, T, dil: p4.body2(w, key, B=B, T=T, dil=dil),
-                lambda w, T, dil: p4.body2_plain(w, key, B=B, T=T, dil=dil), PROBE_BF16_TOL)
+            return (lambda w, T, dil, B, **kw: kern(w, B=B, T=T, dil=dil, **kw),
+                    lambda w, T, dil, B: plain(w, B=B, T=T, dil=dil), PROBE_BF16_TOL)
+        return (lambda w, T, dil, B: p4.body2(w, key, B=B, T=T, dil=dil),
+                lambda w, T, dil, B: p4.body2_plain(w, key, B=B, T=T, dil=dil), PROBE_BF16_TOL)
 
     def errs(got, want):
         pairs = [(got[0], want[0])] + ([(got[1], want[1])] if want[1] is not None else [])
@@ -571,8 +577,8 @@ def probes(card, dev):
         kern, plain, tol = runs(kind, key)
         w = {"taps": w_p1, "body2": w_b2}.get(kind, w_body)
         T = p1.T if kind == "taps" else pb.T
-        got = kern(w, T, dil)
-        want, p_ms = events_ms(lambda: plain(w, T, dil))
+        got = kern(w, T, dil, B)
+        want, p_ms = events_ms(lambda: plain(w, T, dil, B))
         wants[kind] = want
         rel, absd = errs(got, want)
         alive = want[0].abs().max().item() > DECAYED
@@ -594,56 +600,113 @@ def probes(card, dev):
 
     probe_profile(pb, w_body, dil, B, card)
 
-    # (iii) the checks that can fail, at SHORT_T, with corrupted variants
+    # (iii) the checks that can fail, at SHORT_T, with corrupted variants, at
+    # every batch size of PROBE_CHECK_BS: P1's clusters (one a row, 15 at
+    # once on an H100) and P2/P4's n-tiles of 8 rows change at those edges.
+    # P3, the first design's per-layer kernels, stays checked at B = 8.
     gen = np.random.RandomState(1)
     short_w = {g: torch.from_numpy((gen.randn(p1.R, p1.R) * g / math.sqrt(p1.R)).astype(
         np.float32)).to(dev) for g in (0.6, 0.3)}
-    w_b2_short = dict(w_b2, cond_in=w_b2["cond_in"][:SHORT_T])
+    cond_gen = np.random.RandomState(2)
+    short_cond = {b: torch.from_numpy(cond_gen.rand(SHORT_T, b, pb.C).astype(np.float32)).to(dev)
+                  for b in PROBE_CHECK_BS}
+    t_check = time.perf_counter()
     for (kind, key) in timed:
         kern, plain, tol = runs(kind, key)
-        T = SHORT_T
-        if kind == "taps":
-            # the probe's w underflows; gain 0.6 / sqrt(R) keeps h alive over
-            # 65 x 24 layers without chaos, compute (3h) at 0.3 over 8 steps
-            w = short_w[0.3 if key == "compute" else 0.6]
-            T = 8 if key == "compute" else SHORT_T
-        else:
-            w = w_b2_short if kind == "body2" else w_body
-        want = plain(w, T, dil)
-        rel, absd = errs(kern(w, T, dil), want)
-        bad = {}
-        if kind == "taps" and key != "dynamic":
-            wz = w.clone()
-            wz[:, 5] = 0
-            bad["w column 5 zeroed"] = kern(wz, T, dil)
-        else:
-            bad["layer 23 at half its dilation"] = kern(w, T, bad_dil)
-        if kind == "resident":
-            bad["P3's cond rule"] = kern(w, T, dil, cond_rule="layer")
-        if kind == "streamed":
-            bad["P2's cond rule"] = kern(w, T, dil, cond_rule="step")
         name = f"{kind}[{key}]" if key is not None else kind
-        bad_rel = {what: errs(out, want)[0] for what, out in bad.items()}
-        print(f"probe check {name} [{card}] T={T}: rel err {rel:.3e} (limit {tol}), max abs "
-              f"err {absd:.3e}, ref rms {want[0].pow(2).mean().sqrt().item():.3e}; corrupted: "
-              + ", ".join(f"{k} {v:.3e}" for k, v in bad_rel.items()), flush=True)
-        check(rel <= tol, f"probe {name} kernel vs plain at T={T}: {rel}")
-        for what, v in bad_rel.items():
-            check(v > tol, f"the probe check of {name} passes a kernel with {what}")
         r = report[(kind, key)]
-        r["max_abs_err"] = max(r["max_abs_err"], absd)
-        r["rel_err"] = max(r["rel_err"], rel)
+        for Bc in (B,) if kind == "streamed" else PROBE_CHECK_BS:
+            T = SHORT_T
+            if kind == "taps":
+                # the probe's w underflows; gain 0.6 / sqrt(R) keeps h alive over
+                # 65 x 24 layers without chaos, compute (3h) at 0.3 over 8 steps
+                w = short_w[0.3 if key == "compute" else 0.6]
+                T = 8 if key == "compute" else SHORT_T
+            else:
+                w = dict(w_b2, cond_in=short_cond[Bc]) if kind == "body2" else w_body
+            want = plain(w, T, dil, Bc)
+            rel, absd = errs(kern(w, T, dil, Bc), want)
+            bad = {}
+            if kind == "taps" and key != "dynamic":
+                wz = w.clone()
+                wz[:, 5] = 0
+                bad["w column 5 zeroed"] = kern(wz, T, dil, Bc)
+            else:
+                bad["layer 23 at half its dilation"] = kern(w, T, bad_dil, Bc)
+            if kind == "resident":
+                bad["P3's cond rule"] = kern(w, T, dil, Bc, cond_rule="layer")
+            if kind == "streamed":
+                bad["P2's cond rule"] = kern(w, T, dil, Bc, cond_rule="step")
+            bad_rel = {what: errs(out, want)[0] for what, out in bad.items()}
+            print(f"probe check {name} [{card}] B={Bc} T={T}: rel err {rel:.3e} (limit {tol}), "
+                  f"max abs err {absd:.3e}, ref rms {want[0].pow(2).mean().sqrt().item():.3e}; "
+                  "corrupted: " + ", ".join(f"{k} {v:.3e}" for k, v in bad_rel.items()),
+                  flush=True)
+            check(rel <= tol, f"probe {name} kernel vs plain at B={Bc}, T={T}: {rel}")
+            for what, v in bad_rel.items():
+                check(v > tol, f"the probe check of {name} at B={Bc} passes a kernel with {what}")
+            r["max_abs_err"] = max(r["max_abs_err"], absd)
+            r["rel_err"] = max(r["rel_err"], rel)
         r["launches"] = launches[(kind, key)]
         r["us_per_step"] = timed[(kind, key)]["us_per_step"]
+    print(f"probe checks [{card}]: {time.perf_counter() - t_check:.1f} s", flush=True)
 
     # P2 and P3 at the probes' constants, with each other's cond rule
     for kind, wrong in (("resident", "layer"), ("streamed", "step")):
         kern, _, tol = runs(kind, None)
-        v = errs(kern(w_body, pb.T, dil, cond_rule=wrong), wants[kind])[0]
+        v = errs(kern(w_body, pb.T, dil, B, cond_rule=wrong), wants[kind])[0]
         print(f"probe check {kind} [{card}] T={pb.T}: the other's cond rule {v:.3e} "
               f"(limit {tol})", flush=True)
         check(v > tol, f"the {kind} check passes the other probe's cond rule at T={pb.T}")
+    probe_ablation(card, dev)
+    from dvc_tpu_torch.tools import bench_sync
+    print(f"exchange primitives [{card}]: {bench_sync.report(bench_sync.measure(dev))}",
+          flush=True)
     return report
+
+
+def probe_plans(card, dev, p1, pb, dil):
+    """The new probe kernels' plans on the card, held to the plans their
+    wrappers compute on the host: P1's cluster (size, channels and shared
+    memory a CTA, clusters at once), body_mma's tiles, resident layers and
+    shared memory at each batch size of the checks, with and without the
+    head."""
+    mine = p1.cluster_plan(p1.R, p1.ring_slots(dil))
+    got = p1.device_plan(p1.R, p1.ring_slots(dil), dev)
+    print(f"probe plan P1 [{card}]: {json.dumps(got)}", flush=True)
+    check(all(got[k] == mine[k] for k in ("cluster", "cols", "threads", "smem_bytes")),
+          f"P1's plan on the card {got} is not the host's {mine}")
+    check(got["max_active_clusters"] >= 1, "no P1 cluster fits on the card")
+    for b in PROBE_CHECK_BS:
+        for head, rule in ((False, "step"), (True, "input")):
+            mine = pb.body_plan(b, pb.L, pb.R, pb.G, pb.S, pb.C, head=head, cond_rule=rule)
+            got = pb.device_plan(b, pb.L, pb.R, pb.G, pb.S, pb.C, head=head, cond_rule=rule,
+                                 device=dev)
+            print(f"probe plan body_mma [{card}] B={b} head={int(head)}: {json.dumps(got)}",
+                  flush=True)
+            check(all(got[k] == mine[k] for k in got if k != "blocks_per_sm"),
+                  f"body_mma's plan on the card {got} is not the host's {mine}")
+            check(got["blocks_per_sm"] >= 1, "body_mma does not fit on an SM")
+
+
+def probe_ablation(card, dev):
+    """tools/ablate_body once: P2's split by variant at B = 8, T = 200, and
+    the per-layer costs it implies."""
+    from dvc_tpu_torch.tools import ablate_body
+    from dvc_tpu_torch.tools import bench_body as pb
+
+    t0 = time.perf_counter()
+    us = ablate_body.ablate(T=200, device=dev)
+    base = us["base"]["P2"]
+    split = {"in": (base - us["no_in"]["P2"]) / pb.L, "out": (base - us["no_out"]["P2"]) / pb.L,
+             "barrier": us["barriers"]["P2"] / (2 * pb.L),
+             "staging": (base - us["no_stage"]["P2"]) / pb.L,
+             "weights": (base - us["no_weights"]["P2"]) / pb.L}
+    print(f"probe ablation [{card}] P2 B={pb.B} T=200: base {base:.2f} us a step; us a layer: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f" (a barrier: barriers only / {2 * pb.L}); P3 base {us['base']['P3']:.2f}, launches "
+          f"only {us['barriers']['P3']:.2f} us a step; {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 TERM_RTOL = 1e-5        # phase 8, card step against CPU step: the limits of
 GRAD_RTOL = 1e-3        # tests/test_torch_port_train.py (loss terms; each gradient

@@ -2,11 +2,16 @@
 
 A copy of dvc_tpu/config.py's AudioConfig, VAEConfig, LossConfig,
 TrainConfig, VocoderConfig, ISTFTVocoderConfig, SpeakerEncoderConfig,
-AutoVCConfig and Config (the port imports
-nothing of dvc_tpu), cut to the fields the port reads; names and defaults are
-dvc_tpu's.  TrainConfig has no ``donate_state``: there is no jit to donate
-to.  ``checkpoint_format="orbax"`` is kept so a dvc_tpu config reads the
-same, but the trainer refuses it as not yet ported.
+AutoVCConfig, MeshConfig and Config (the port imports nothing of dvc_tpu),
+with dvc_tpu's names, defaults and field order, so that ``Config().to_json()``
+and the config.json that ``train`` writes are dvc_tpu's byte for byte.
+Some fields are records only, read by nothing in the port:
+``allow_clipping_in_normalization``, ``inference_n_frames``,
+``gin_channels`` and ``weight_normalization`` (as in dvc_tpu),
+``donate_state`` (there is no jit to donate to) and the whole MeshConfig,
+which stays inert until the port has a mesh layer.
+``checkpoint_format="orbax"`` is kept so a dvc_tpu config reads the same,
+but the trainer refuses it as not yet ported.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ class AudioConfig:
     ref_level_db: float = 16.0
     rescaling: bool = True
     rescaling_max: float = 0.999
+    # a record (ops/mel.py always clips to [0, 1], as the reference runs)
+    allow_clipping_in_normalization: bool = True
     # lws' default analysis window is sqrt(hann)
     window: str = "sqrt_hann"
 
@@ -42,6 +49,11 @@ class AudioConfig:
     vad_detector: str = "gmm"  # "gmm" (WebRTC-architecture) | "energy"
     vad_mode: int = 3          # webrtcvad aggressiveness 0..3
     audio_norm_target_dbfs: float = -30.0
+
+    # partial-utterance windows of the speaker encoder
+    # (preprocessing/encoder/params_data.py:11-13); the second a record
+    partials_n_frames: int = 63
+    inference_n_frames: int = 80
 
 
 @dataclass(frozen=True)
@@ -103,6 +115,7 @@ class TrainConfig:
     # float32 either way, as dvc_tpu's does (its layers promote bf16 inputs
     # with float32 parameters back to float32)
     compute_dtype: str = "bfloat16"
+    donate_state: bool = True         # a record: there is no jit to donate to
     remat: bool = False               # recompute the pair forward in the backward
     checkpoint_format: str = "msgpack"  # .msgpack beside .pth; "orbax" not yet ported
 
@@ -118,14 +131,16 @@ class VocoderConfig:
     gate_channels: int = 512
     skip_out_channels: int = 256
     kernel_size: int = 3
+    dropout: float = 1 - 0.95         # on the layer inputs, in training only
     cin_channels: int = 80
+    gin_channels: int = -1            # a record: global conditioning is off
     upsample_scales: Sequence[int] = (4, 4, 4, 4)
     freq_axis_kernel_size: int = 3
     log_scale_min: float = -32.23619130191664
+    # a record: the reference trains with weight_norm, the port's convs are
+    # plain (the converters fuse g * v / ||v||)
+    weight_normalization: bool = True
     legacy: bool = True                # x sqrt(1/2) skip scaling
-    # dvc_tpu/config.py:145: on the layer inputs, in training only; last here,
-    # not after kernel_size as in dvc_tpu, so positional use still holds
-    dropout: float = 1 - 0.95
 
     @property
     def layers_per_stack(self) -> int:
@@ -177,6 +192,18 @@ class AutoVCConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """dvc_tpu's device-mesh settings, inert in the port until it has a
+    mesh layer (the data and model axes, -1 = every device on data)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
+    shard_opt_state: bool = True
+
+
+@dataclass(frozen=True)
 class Config:
     audio: AudioConfig = field(default_factory=AudioConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
@@ -185,6 +212,7 @@ class Config:
     vocoder: VocoderConfig = field(default_factory=VocoderConfig)
     speaker_encoder: SpeakerEncoderConfig = field(default_factory=SpeakerEncoderConfig)
     autovc: AutoVCConfig = field(default_factory=AutoVCConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=4, default=str)

@@ -10,31 +10,59 @@
 //   1 static   taps at fixed slots 2l (overwritten) and 2l + 1 (never
 //              written, so always zero);
 //   2 compute  no ring: y = (h + h + h) @ w.
-// float32 throughout, as the probe: the ring (slots, B, R), h (B, R) and w
-// (R, R) in (in, out) layout.  The output is the final h.
+// float32 throughout, as the probe: h (B, R) and w (R, R) in (in, out)
+// layout.  The output is the final h.
 //
 // What bounds it on an H100.  24 x B x R^2 multiply-adds per sample step in
 // float32 outside the tensor cores: 50.3 MFLOP a step at B = 8, R = 512,
 // 0.75 us at 67 TFLOP/s, 3.00 ms for the probe's 2000 steps; w is 1 MB and
-// is read once.  Every layer depends on the whole previous h, so in practice
-// the serial chain of L x T dependent layers bounds it.
+// is read once.  Every layer depends on the whole previous h of its row, so
+// in practice the serial chain of L x T dependent layers bounds it, and
+// each link of the chain costs one exchange of h between the SMs that hold
+// the row's channels.
 //
-// Design.  One cooperative launch for the whole run: the probe's sequential
-// grid becomes a loop over (t, l) inside the kernel.  The blocks split the
-// R output columns (4 a block at R = 512 on 132 SMs) and keep their columns
-// of w in shared memory for the whole run (8 KB each; the 1 MB of w never
-// leaves the chip after the first read).  Per layer each block stages the
-// layer input u = x_{t-d} + x_{t-2d} + h for all B rows (16 KB) from L2, all
-// of a thread's 16-byte loads in flight at once, computes its columns with
-// one warp per (column, row) output, and writes
-// tanh into the other half of a ping-pong h.  One grid barrier per layer
-// (cooperative_groups grid sync; cudaLaunchCooperativeKernel refuses a grid
-// that cannot be co-resident instead of hanging) makes the new h whole
-// before the next layer reads it.  The ring write of the layer input into
-// slot x_{t-2d} comes after that barrier, when every block has staged the
-// slot: each block writes its own columns, which only it writes in h.
-// Data written inside the kernel is read with ld.global.cg (L2, coherent
-// across SMs), never through the non-coherent L1 / read-only paths.
+// What held the first design back (on one NVIDIA H100 80GB HBM3 at 700 W):
+// one cooperative launch over 128 blocks with a grid barrier after every
+// layer, 48,000 a call at T = 2000, each block staging the whole 16 KB u =
+// x_{t-d} + x_{t-2d} + h of all B rows from L2 every layer: 4.0-4.4 us a
+// layer, 192.2-209.7 ms a call.  Yet the body mixes no batch rows (u @ w
+// and tanh are row-wise), so the grid-wide chain was needless.
+//
+// Design.  One thread-block cluster of kCluster CTAs per batch row, and no
+// grid barrier: clusters never wait on each other, so B above the number of
+// co-resident clusters runs in waves, and a call is still one launch.  CTA
+// j of a cluster owns channels [j R/n, (j+1) R/n) of h, u and the ring and
+// the same output columns of w.  The cluster size: 8.  On the H100
+// cudaOccupancyMaxActiveClusters reads 15 clusters of 8 and 7 of 16 at one
+// CTA an SM (tools/bench_sync), so 16 would run the probe's B = 8 rows in
+// two waves.  At 8 a CTA
+// owns 64 columns: its 512 x 64 slice of w (128 KB) stays in registers for
+// the whole call (512 threads, 64 values each: thread (s, c) holds rows
+// [64 s, 64 s + 64) of column c), which leaves shared memory to its slice
+// of the ring, 504 slots x 64 channels (129 KB), local and never read by
+// another CTA (so it needs no copy from device memory).  Per layer n:
+//   1. wait on this CTA's mbarrier of u buffer n & 1 until the layer's
+//      whole input has landed (2 KB: 256 bytes from each of the 8 CTAs);
+//   2. each thread's 64-term dot of its rows of u with its w column, u read
+//      from shared memory as broadcast 16-byte loads, 4 chains in flight;
+//   3. the 8 slices' sums in shared memory (double-buffered), one block
+//      barrier, and tanh, by 64 threads;
+//   4. those threads form their channels of the NEXT layer's input u' =
+//      x'_{t-d} + x'_{t-2d} + h from the local ring, write the layer input
+//      h into its slot x'_{t-2d}, and send u' to every CTA of the cluster
+//      (itself included) with st.async into distributed shared memory, a
+//      lane quad's 4 channels as one 16-byte store that completes its bytes
+//      on the receiver's mbarrier of u buffer (n + 1) & 1.
+// No cluster barrier a layer: a CTA waits only for its own input, and the
+// sender never waits.  Two u buffers make that safe: a CTA writes a peer's
+// buffer n + 1 only after the peer's input n has come from it, i.e. after
+// the peer finished layer n - 1 with that buffer; a receiver arms buffer
+// n & 1's mbarrier for layer n + 2 right after its wait for layer n, before
+// any peer can send layer n + 2.  A cluster barrier a layer would cost
+// 0.50-0.61 us of it by itself at 8 CTAs (tools/bench_sync).  The dots are float32
+// FMAs, not TF32: the check is 1e-4 of the max.  A plan that does not fit
+// (R other than kCluster x kCols, or a ring over the shared memory) is
+// refused, as is a launch with no co-resident cluster.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -45,124 +73,176 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStage = 4;  // float4 chunks in flight per thread while staging
+constexpr int kCluster = 8;                // CTAs a batch row
+constexpr int kThreads = 512;
+constexpr int kCols = 64;                  // channels a CTA
+constexpr int kR = kCluster * kCols;       // the only R a plan takes (the probe's 512)
+constexpr int kSlices = kThreads / kCols;  // row slices of w a column is split into
+constexpr int kKPT = kR / kSlices;         // w values a thread keeps in registers
 constexpr int kMaxLayers = 64;
-constexpr int kMaxSmem = 232448;  // H100: 227 KB of dynamic shared memory a block
+constexpr int kMaxSmem = 232448;           // H100: 227 KB of dynamic shared memory a block
+
+static_assert(kThreads % kCols == 0 && kR % kSlices == 0 && kKPT % 4 == 0, "plan");
+static_assert(kCluster % 4 == 0 && kCols % 32 == 0, "a lane quad sends to kCluster / 4 peers");
 
 struct Taps {
-  int mode, B, R, T, L, ncols;
+  int mode, B, T, L, slots;
   int dil[kMaxLayers], offs[kMaxLayers];
   const float* w;  // (R, R), (in, out)
-  float* ring;     // (slots, B, R), zeroed by the host
-  float* h;        // (2, B, R): layer n reads half n & 1, writes the other
   float* out;      // (B, R)
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// shared memory of a CTA: ring (slots, kCols) | u (2, kR) | part (2, kSlices,
+// kCols), float32 | two mbarriers
+size_t smem_bytes(int slots) {
+  return ((size_t)slots * kCols + 2 * kR + 2 * kSlices * kCols) * sizeof(float) + 16;
+}
+
+constexpr long long kSpinLimit = 1ll << 24;  // polls before a wait traps instead of hanging
+
+__device__ __forceinline__ void slots_of(const Taps& p, int t, int l, int* s2, int* s1) {
+  if (p.mode == 0) {
+    const int d = p.dil[l], wp = t % (2 * d);
+    *s2 = p.offs[l] + wp;
+    *s1 = p.offs[l] + (wp + d) % (2 * d);
+  } else {
+    *s2 = 2 * l;
+    *s1 = 2 * l + 1;
+  }
+}
+
+// channel c's layer input sum of layer (t, l) from the layer input h, the
+// ring write of h into slot x_{t-2d} after the taps are read
+__device__ __forceinline__ float layer_input(const Taps& p, float* ring, int t, int l, int c,
+                                             float h) {
+  if (p.mode == 2) return (h + h) + h;
+  int s2, s1;
+  slots_of(p, t, l, &s2, &s1);
+  const float v = (ring[s1 * kCols + c] + ring[s2 * kCols + c]) + h;
+  ring[s2 * kCols + c] = h;
   return v;
 }
 
-__device__ __forceinline__ float4 sum3(float4 a, float4 b, float4 c) {  // (a + b) + c
-  return make_float4(a.x + b.x + c.x, a.y + b.y + c.y, a.z + b.z + c.z, a.w + b.w + c.w);
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
 }
 
-// u = x_{t-d} + x_{t-2d} + h (compute: h + h + h) over n4 float4 chunks, a
-// thread's kStage chunks loaded before the first is used: one round trip
-// to L2 per kStage chunks instead of one per element
-__device__ void stage(float* u, const float* h, const float* x1, const float* x2, int n4,
-                      bool compute) {
-  for (int c0 = threadIdx.x; c0 < n4; c0 += kStage * blockDim.x) {
-    float4 hv[kStage], a[kStage], b[kStage];
-#pragma unroll
-    for (int k = 0; k < kStage; ++k) {
-      const int c = c0 + k * blockDim.x;
-      if (c < n4) {
-        hv[k] = __ldcg(reinterpret_cast<const float4*>(h) + c);
-        if (!compute) {
-          a[k] = __ldcg(reinterpret_cast<const float4*>(x1) + c);
-          b[k] = __ldcg(reinterpret_cast<const float4*>(x2) + c);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kStage; ++k) {
-      const int c = c0 + k * blockDim.x;
-      if (c < n4)
-        reinterpret_cast<float4*>(u)[c] =
-            compute ? sum3(hv[k], hv[k], hv[k]) : sum3(a[k], b[k], hv[k]);
-    }
+// this CTA's address `a` in the shared memory of CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// the bytes of the next input of u buffer `m`'s layer, expected on its mbarrier
+__device__ __forceinline__ void expect_input(uint32_t mbar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar),
+               "r"((uint32_t)(kR * sizeof(float)))
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_input(uint32_t mbar, uint32_t parity) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > kSpinLimit) __trap();
   }
 }
 
-__global__ void __launch_bounds__(kThreads) taps_kernel(Taps p) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float sm[];
-  const int B = p.B, R = p.R;
-  const int c0 = blockIdx.x * p.ncols;
-  const int nc = min(p.ncols, R - c0);  // this block's output columns
-  float* wt = sm;                       // (ncols, R): row c is w[:, c0 + c]
-  float* u = sm + (size_t)p.ncols * R;  // (B, R): the layer input
-  const size_t hsz = (size_t)B * R;
-  for (int i = threadIdx.x; i < nc * R; i += blockDim.x) {
-    const int c = i / R, k = i - c * R;
-    wt[i] = p.w[(size_t)k * R + c0 + c];
+// channel c's input value v into u buffer `buf` of every CTA of the
+// cluster, completing on that CTA's mbarrier of the buffer: the 4 channels
+// of a lane quad go as one 16-byte st.async, lane q of the quad sending to
+// peers q and q + 4
+__device__ __forceinline__ void send_input(float v, int c, int j, float* u, int buf,
+                                           uint64_t* mbar) {
+  const int lane = threadIdx.x & 31, base = lane & ~3, q = lane & 3;
+  const float v0 = __shfl_sync(0xffffffffu, v, base), v1 = __shfl_sync(0xffffffffu, v, base + 1);
+  const float v2 = __shfl_sync(0xffffffffu, v, base + 2), v3 = __shfl_sync(0xffffffffu, v, base + 3);
+  const uint32_t dst = smem_u32(u + buf * kR + j * kCols + (c & ~3)), mb = smem_u32(mbar + buf);
+#pragma unroll
+  for (int k = 0; k < kCluster / 4; ++k) {
+    const int peer = q + 4 * k;
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+        "[%5];" ::"r"(peer_addr(dst, peer)),
+        "f"(v0), "f"(v1), "f"(v2), "f"(v3), "r"(peer_addr(mb, peer))
+        : "memory");
   }
-  for (int i = threadIdx.x; i < B * nc; i += blockDim.x) {
-    const int b = i / nc, c = i - b * nc;
-    p.h[(size_t)b * R + c0 + c] = 1.f;  // the probe's h at t = 0
+}
+
+__global__ void __launch_bounds__(kThreads, 1) taps_cluster(Taps p) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float4 sm4[];
+  float* ring = reinterpret_cast<float*>(sm4);    // (slots, kCols)
+  float* u = ring + (size_t)p.slots * kCols;      // (2, kR): layer n's input in buffer n & 1
+  float* part = u + 2 * kR;                       // (2, kSlices, kCols)
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(part + 2 * kSlices * kCols);  // one a buffer
+  const int j = (int)cl.block_rank();
+  const int b = blockIdx.x / kCluster;
+  const int c = threadIdx.x % kCols, s = threadIdx.x / kCols;
+  float* out = p.out + (size_t)b * kR + j * kCols;
+
+  float w[kKPT];  // rows [s kKPT, (s + 1) kKPT) of output column j kCols + c
+#pragma unroll
+  for (int i = 0; i < kKPT; ++i) w[i] = __ldg(p.w + (size_t)(s * kKPT + i) * kR + j * kCols + c);
+  if (p.mode != 2)
+    for (int i = threadIdx.x; i < p.slots * kCols; i += kThreads) ring[i] = 0.f;
+  const int total = p.T * p.L;
+  if (total == 0) {  // the probe's h at t = 0
+    if (s == 0) out[c] = 1.f;
+    return;
   }
-  grid.sync();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int t = 0; t < p.T; ++t) {
-    for (int l = 0; l < p.L; ++l) {
-      const int n = t * p.L + l;
-      const float* hin = p.h + (size_t)(n & 1) * hsz;
-      float* hout = p.h + (size_t)((n + 1) & 1) * hsz;
-      int s2 = 0, s1 = 0;  // slots of x_{t-2d} (written below) and x_{t-d}
-      if (p.mode == 0) {
-        const int d = p.dil[l], wp = t % (2 * d);
-        s2 = p.offs[l] + wp;
-        s1 = p.offs[l] + (wp + d) % (2 * d);
-      } else if (p.mode == 1) {
-        s2 = 2 * l;
-        s1 = 2 * l + 1;
-      }
-      const float* x2 = p.ring + (size_t)s2 * hsz;
-      const float* x1 = p.ring + (size_t)s1 * hsz;
-      stage(u, hin, x1, x2, B * R / 4, p.mode == 2);
-      __syncthreads();
-      for (int q = warp; q < nc * B; q += nw) {
-        const int c = q / B, b = q - c * B;
-        const float* ub = u + (size_t)b * R;
-        const float* wc = wt + (size_t)c * R;
-        float acc = 0.f;
-        for (int k = lane; k < R; k += 32) acc = fmaf(ub[k], wc[k], acc);
-        acc = warp_sum(acc);
-        if (lane == 0) hout[(size_t)b * R + c0 + c] = tanhf(acc);
-      }
-      grid.sync();  // the new h is whole; every block has staged slot s2
-      if (p.mode != 2) {
-        float* ring_w = p.ring + (size_t)s2 * hsz;
-        for (int i = threadIdx.x; i < B * nc; i += blockDim.x) {
-          const int b = i / nc, c = i - b * nc;
-          const size_t e = (size_t)b * R + c0 + c;
-          ring_w[e] = __ldcg(hin + e);
-        }
-        // with one layer no other barrier comes before the next step reads
-        // the slot (at d = 1, x_{t+1-d} is the slot just written)
-        if (p.L == 1) grid.sync();
-      }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(mbar + i)) : "memory");
+      if (i < total) expect_input(smem_u32(mbar + i));  // layers 0 and 1
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cl.sync();  // every CTA of the cluster runs, its mbarriers armed, before any send
+  if (s == 0) send_input(layer_input(p, ring, 0, 0, c, 1.f), c, j, u, 0, mbar);
+
+  int t = 0, l = 0;  // the layer (t, l) = n
+  for (int n = 0; n < total; ++n) {
+    wait_input(smem_u32(mbar + (n & 1)), (uint32_t)((n >> 1) & 1));
+    // buffer n & 1 is whole and every peer has read it as layer n - 2's
+    // input; arm its mbarrier for layer n + 2
+    if (threadIdx.x == 0 && n + 2 < total) expect_input(smem_u32(mbar + (n & 1)));
+    const float4* ub = reinterpret_cast<const float4*>(u + (n & 1) * kR + s * kKPT);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kKPT / 4; ++i) {
+      const float4 x = ub[i];
+      acc[0] = fmaf(x.x, w[4 * i], acc[0]);
+      acc[1] = fmaf(x.y, w[4 * i + 1], acc[1]);
+      acc[2] = fmaf(x.z, w[4 * i + 2], acc[2]);
+      acc[3] = fmaf(x.w, w[4 * i + 3], acc[3]);
+    }
+    float* pn = part + (n & 1) * kSlices * kCols;
+    pn[s * kCols + c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    __syncthreads();
+    if (++l == p.L) {
+      l = 0;
+      ++t;
+    }
+    if (s == 0) {
+      float a = 0.f;
+#pragma unroll
+      for (int q = 0; q < kSlices; ++q) a += pn[q * kCols + c];
+      const float h = tanhf(a);
+      if (n + 1 < total)
+        send_input(layer_input(p, ring, t, l, c, h), c, j, u, (n + 1) & 1, mbar);
+      else
+        out[c] = h;
     }
   }
-  const float* hf = p.h + (size_t)((p.T * p.L) & 1) * hsz;  // written by this block
-  for (int i = threadIdx.x; i < B * nc; i += blockDim.x) {
-    const int b = i / nc, c = i - b * nc;
-    const size_t e = (size_t)b * R + c0 + c;
-    p.out[e] = __ldcg(hf + e);
-  }
+  cl.sync();  // no CTA leaves while a peer's sends to it may be in flight
 }
 
 #define DVC_CHECK(expr)                    \
@@ -171,24 +251,66 @@ __global__ void __launch_bounds__(kThreads) taps_kernel(Taps p) {
     if (e_ != cudaSuccess) return (int)e_; \
   } while (0)
 
+int configure(int slots, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int grid,
+              cudaStream_t st) {
+  if (slots < 0 || smem_bytes(slots) > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(slots);
+  DVC_CHECK(cudaFuncSetAttribute(taps_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem));
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
+// The plan of a call: plan[0..4] = cluster size, channels a CTA, threads a
+// CTA, shared-memory bytes a CTA, and the card's cudaOccupancyMaxActive-
+// Clusters for it.  Returns 0, cudaErrorInvalidValue for a plan that does
+// not fit (R != kCluster x kCols, or the ring over the shared memory), or
+// the first cudaError_t.
+int dvc_probe_taps_plan(int R, int slots, int* plan) {
+  if (R != kR) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int err = configure(slots, &cfg, &attr, kCluster, 0);
+  if (err) return err;
+  int active = 0;
+  DVC_CHECK(cudaOccupancyMaxActiveClusters(&active, (const void*)taps_cluster, &cfg));
+  plan[0] = kCluster;
+  plan[1] = kCols;
+  plan[2] = kThreads;
+  plan[3] = (int)smem_bytes(slots);
+  plan[4] = active;
+  return 0;
+}
+
 // mode 0 dynamic, 1 static, 2 compute.  dil: host array of L dilations (the
 // ring offsets are their running sum of 2d); slots: the ring's length, at
-// least max(sum 2d, 2L).  w (R, R), ring (slots, B, R), h (2, B, R) and out
-// (B, R) are float32 device pointers.  Returns 0 or the first cudaError_t.
+// least max(sum 2d, 2L).  w (R, R) and out (B, R) are float32 device
+// pointers.  One cluster launch of B x kCluster CTAs.  Returns 0 or the
+// first cudaError_t (cudaErrorInvalidValue for a plan that does not fit).
 int dvc_probe_taps(int mode, int B, int R, int T, int L, const int* dil, int slots,
-                   const void* w, void* ring, void* h, void* out, void* stream) {
-  if (mode < 0 || mode > 2 || B <= 0 || R <= 0 || R % 4 || T < 0 || L <= 0 || L > kMaxLayers)
+                   const void* w, void* out, void* stream) {
+  if (mode < 0 || mode > 2 || B <= 0 || R != kR || T < 0 || L <= 0 || L > kMaxLayers)
     return (int)cudaErrorInvalidValue;
   Taps p{};
   p.mode = mode;
   p.B = B;
-  p.R = R;
   p.T = T;
   p.L = L;
+  p.slots = mode == 2 ? 0 : slots;
   int need = 2 * L;
   for (int l = 0, off = 0; l < L; ++l) {
     if (dil[l] <= 0) return (int)cudaErrorInvalidValue;
@@ -199,25 +321,15 @@ int dvc_probe_taps(int mode, int B, int R, int T, int L, const int* dil, int slo
   }
   if (slots < need) return (int)cudaErrorInvalidValue;
   p.w = static_cast<const float*>(w);
-  p.ring = static_cast<float*>(ring);
-  p.h = static_cast<float*>(h);
   p.out = static_cast<float*>(out);
-  int dev = 0, sms = 0, per_sm = 0;
-  DVC_CHECK(cudaGetDevice(&dev));
-  DVC_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  p.ncols = (R + sms - 1) / sms;
-  const int nblk = (R + p.ncols - 1) / p.ncols;
-  const size_t smem = ((size_t)p.ncols * R + (size_t)B * R) * sizeof(float);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  DVC_CHECK(cudaFuncSetAttribute(taps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem));
-  DVC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, taps_kernel, kThreads, smem));
-  if (per_sm * sms < nblk) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const cudaStream_t st = (cudaStream_t)stream;
-  DVC_CHECK(cudaMemsetAsync(ring, 0, (size_t)slots * B * R * sizeof(float), st));
-  void* args[] = {&p};
-  DVC_CHECK(cudaLaunchCooperativeKernel((const void*)taps_kernel, dim3(nblk), dim3(kThreads),
-                                        args, smem, st));
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int err = configure(p.slots, &cfg, &attr, B * kCluster, (cudaStream_t)stream);
+  if (err) return err;
+  int active = 0;
+  DVC_CHECK(cudaOccupancyMaxActiveClusters(&active, (const void*)taps_cluster, &cfg));
+  if (active < 1) return (int)cudaErrorInvalidConfiguration;
+  DVC_CHECK(cudaLaunchKernelEx(&cfg, taps_cluster, p));
   return (int)cudaGetLastError();
 }
 

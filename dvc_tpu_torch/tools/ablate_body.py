@@ -1,17 +1,19 @@
-"""Where a layer's time goes in P2 and P3 (csrc/probe_body.cu).  Each variant
-removes one part of the kernel by an edit of its source, and is timed as P2
-(one persistent launch, two grid barriers a layer) and, where the edit
-reaches the per-layer kernels, as P3 (two launches a layer), at the probes'
-widths and weights, B = 8, over T steps.  A variant's output is wrong by
-design: only its time is read.
+"""Where a layer's time goes in P2 (csrc/probe_body.cu's body_mma).  Each
+variant removes one part of the kernel by an edit of its source, and is
+timed as P2 (one persistent launch, two grid barriers a layer) at the
+probes' widths and weights, B = 8, over T steps; the base kernel and the
+barriers-only variant are also timed as P3 (two launches a layer, the
+per-layer kernels of the first design), for the price of a launch.  A
+variant's output is wrong by design: only its time is read.
 
   base        the kernel as it is
-  barriers    no phase work: P2 runs only its grid barriers, P3 only its
-              empty launches
-  no_in       P2 without phase `in` (its barrier stays)
-  no_out      P2 without phase `out` (its barrier stays)
-  no_stage    phase `in` stages no inputs; the weights are still read
-  no_weights  the phases read no weights, a constant in place of each vector
+  barriers    no phase work: P2 runs only its grid barriers (and its weight
+              and taps copies), P3 only its empty launches
+  no_in       P2 without phase `in`'s dots and gate (its barrier stays)
+  no_out      P2 without phase `out`'s dots and epilogue (its barrier stays)
+  no_stage    phase `in` stages no inputs (no taps, no h, no cond); the
+              weights are still read
+  no_weights  no weight copies, a constant in place of each fragment
   no_barrier  P2 with each grid barrier cut to a block barrier
 
     python -m dvc_tpu_torch.tools.ablate_body [--T 200]
@@ -35,29 +37,23 @@ from dvc_tpu_torch.tools import bench_body as pb
 from dvc_tpu_torch.utils.device import resolve_device
 
 SOURCE = _build.CSRC / "probe_body.cu"
-_STAGE = ("  stage_in(p, p.ring + (size_t)s2 * hsz, p.ring + (size_t)s1 * hsz, "
-          "csrc, cstride, xs);")
-_IN = "      phase_in(p, t, l, sm);\n      grid.sync();"
-_OUT = "      phase_out(p, t, l, sm);\n      grid.sync();"
-_WEIGHT_LOAD = ("use_pre && v == first ? pre[r]\n"
-                "                                        : __ldg(reinterpret_cast<const uint4*>"
-                "(w[r]) + v)")
-_WEIGHT_PRE = ("    pre[r] = first < n / 8 ? __ldg(reinterpret_cast<const uint4*>(w[r]) + first)\n"
-               "                           : make_uint4(0u, 0u, 0u, 0u);")
-_ONE = "make_uint4(0x3c003c00u, 0x3c003c00u, 0x3c003c00u, 0x3c003c00u)"
+
+
+def _off(flag: str) -> tuple[str, str]:
+    """The edit that turns one of body_mma's ablation switches off."""
+    return f"constexpr bool {flag} = true;", f"constexpr bool {flag} = false;"
+
 
 # name -> (the (old, new) edits of the source, whether P3 is timed)
 VARIANTS: dict[str, tuple[tuple[tuple[str, str], ...], bool]] = {
     "base": ((), True),
-    "barriers": (((_IN, "      grid.sync();"), (_OUT, "      grid.sync();"),
-                  ("  phase_in(p, t, l, sm);\n}", "}"), ("  phase_out(p, t, l, sm);\n}", "}")),
-                 True),
-    "no_in": (((_IN, "      grid.sync();"),), False),
-    "no_out": (((_OUT, "      grid.sync();"),), False),
-    "no_stage": (((_STAGE, ""),), True),
-    "no_weights": (((_WEIGHT_LOAD, _ONE), (_WEIGHT_PRE, "    pre[r] = " + _ONE + ";")), True),
-    "no_barrier": ((("      grid.sync();  // (a)", "      __syncthreads();  // (a)"),
-                    ("      grid.sync();  // (b)", "      __syncthreads();  // (b)")), False),
+    "barriers": ((_off("kDoIn"), _off("kDoOut"), ("  phase_in(p, t, l, sm);\n}", "}"),
+                  ("  phase_out(p, t, l, sm);\n}", "}")), True),
+    "no_in": ((_off("kDoIn"),), False),
+    "no_out": ((_off("kDoOut"),), False),
+    "no_stage": ((_off("kStageInputs"),), False),
+    "no_weights": ((_off("kLoadWeights"),), False),
+    "no_barrier": ((_off("kGridBarrier"),), False),
 }
 
 

@@ -8,9 +8,13 @@ over T samples of L layers, "resident" and "streamed".
              the current h (:124) -- a different function, not another
              schedule of P2's.
 Each wrapper launches csrc/probe_body.cu on a CUDA tensor (P2 as one
-cooperative launch with a grid barrier between dependent phases, P3 as two
-launches per layer from a host loop in C; see there) or raises, and runs its
-plain twin (resident_plain, streamed_plain) on a CPU tensor.  Both return
+cooperative launch of body_mma, on the tensor cores with its weights
+brought by the TMA and two grid barriers a layer; P3 as two launches per
+layer from a host loop in C; see there) or raises, and runs its plain twin
+(resident_plain, streamed_plain) on a CPU tensor.  ``body_plan`` is
+body_mma's plan (tiles, resident layers, shared memory) as the .cu file
+computes it, ``frag_pack`` its weights in the tensor cores' fragment
+order.  Both return
 (h (1, B, R), skip (B, S)): the probe's output and the skip sum of the last
 step, which the TPU kernel computes and drops.  ``resident.launches`` and
 ``streamed.launches`` count kernel launches.
@@ -34,6 +38,10 @@ from dvc_tpu_torch.utils.device import resolve_device
 B, R, G, S, C, T, L = 8, 512, 512, 256, 80, 1000, 24
 SCALE = 0.7071  # the probes' literal
 COND_RULES = ("step", "layer", "input")  # in the order of the kernel's codes 0, 1, 2
+# csrc/probe_body.cu's body_mma constants (held to the source by the tests):
+# blocks, threads, n-tiles of 8 batch rows, rows of a tile, the bf16 pad of
+# a staged row, the owned state's batch stride, shared memory a block
+CTAS, THREADS, MAX_NT, MAX_ROWS, PAD, OWN_B, MAX_SMEM = 128, 288, 2, 8, 8, 16, 232448
 
 
 def _bf16(a: np.ndarray) -> torch.Tensor:
@@ -68,16 +76,154 @@ def dims(w: dict) -> tuple[int, int, int, int, int]:
 
 
 def pack(w: dict, bias_key: str = "b") -> dict[str, torch.Tensor]:
-    """The kernel's output-major layout: w_in (L, G, KIp) rows [W0[:, j] |
-    W1[:, j] | W2[:, j] | Wc[:, j] | 0] with KIp = 3R + C rounded up to 8,
-    w_so (L, S + R, G/2) rows [w_skip[:, s] ; w_out[:, r]], b_in (L, G)."""
-    layers, r, g, _, c = dims(w)
+    """The kernels' layouts: P3's output-major w_in (L, G, KIp) rows
+    [W0[:, j] | W1[:, j] | W2[:, j] | Wc[:, j] | 0] with KIp = 3R + C
+    rounded up to 8 and w_so (L, S + R, G/2) rows [w_skip[:, s] ; w_out[:,
+    r]]; b_in (L, G); and, where body_mma takes the widths, its w_frag
+    (frag_pack)."""
+    layers, r, g, s_ch, c = dims(w)
     w_in = torch.cat([w["w_dil"].permute(0, 3, 1, 2).reshape(layers, g, 3 * r),
                       w["w_c"].transpose(1, 2)], 2)
-    return {"w_in": F.pad(w_in, (0, -(3 * r + c) % 8)).contiguous(),
-            "w_so": torch.cat([w["w_skip"].transpose(1, 2), w["w_out"].transpose(1, 2)],
-                              1).contiguous(),
-            "b_in": w[bias_key].reshape(layers, g).float().contiguous()}
+    out = {"w_in": F.pad(w_in, (0, -(3 * r + c) % 8)).contiguous(),
+           "w_so": torch.cat([w["w_skip"].transpose(1, 2), w["w_out"].transpose(1, 2)],
+                             1).contiguous(),
+           "b_in": w[bias_key].reshape(layers, g).float().contiguous()}
+    try:
+        body_plan(1, max(layers, 2), r, g, s_ch, c)
+    except ValueError:
+        return out  # widths only the per-layer kernels (P3) take
+    return {**out, "w_frag": frag_pack(w)}
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def body_plan(B: int, layers: int, r: int, g: int, s: int, c: int, *, head: bool = False,
+              cond_rule: str = "step") -> dict[str, int]:
+    """body_mma's plan, as persist_layout in the .cu file computes it: CTAS
+    blocks, each with a tile of rows_in rows of phase in (its gate pairs'
+    a- and g-rows), rows_out of phase out (its S / CTAS skip rows, then its
+    R / CTAS channels of h) and rows_f1 of the head's final1;
+    its layer_bytes of a layer's fragments (f1_bytes of final1's), of which
+    resident_layers stay in shared memory for the call and the rest stream
+    through two slots; smem_bytes a block.  Raises ValueError for shapes or
+    a plan the kernel refuses."""
+    g2 = g // 2
+    why = []
+    if not 1 <= B <= 8 * MAX_NT:
+        why.append(f"B = {B} outside [1, {8 * MAX_NT}]")
+    if not 2 <= layers <= 64:
+        why.append(f"{layers} layers outside [2, 64]")
+    if g % 2 or g2 % CTAS or g2 % 16 or r % CTAS or s % CTAS or s % 16:
+        why.append(f"G/2 = {g2}, R = {r} and S = {s} must split over {CTAS} blocks "
+                   "(and G/2, S into 16-wide k-steps)")
+    if r % 16 or c % 8 or c > r:
+        why.append(f"R = {r} must be a multiple of 16 and C = {c} of 8, C <= R")
+    if cond_rule not in COND_RULES or (head and cond_rule == "step"):
+        why.append(f"cond rule {cond_rule!r}" + (" with the head" if head else ""))
+    if why:
+        raise ValueError("body_mma does not take these shapes: " + "; ".join(why))
+    pairs = g2 // CTAS
+    rin, rout, rf1 = 2 * pairs, (s + r) // CTAS, s // CTAS
+    if max(rin, rout) > MAX_ROWS:
+        raise ValueError(f"body_mma's tiles hold {MAX_ROWS} rows a block, these need "
+                         f"{rin} in and {rout} out")
+    kt, kh, ko, kf = 2 * r // 16, (r + c + 15) // 16, g2 // 16, s // 16
+    nt = (B + 7) // 8
+    layer_bytes = ((kt + kh) * rin + ko * rout) * 32
+    f1_bytes = kf * rf1 * 32 if head else 0
+    rows = 8 * nt
+    fixed = (_align16(8 * MAX_NT * 64 * 4) + _align16(rows * (2 * r + PAD) * 2)
+             + _align16(rows * (16 * kh + PAD) * 2) + _align16(rows * (max(g2, s) + PAD) * 2)
+             + 2 * MAX_ROWS * OWN_B * 4 + OWN_B * 4 + 32 + f1_bytes)
+    if fixed + layers * layer_bytes <= MAX_SMEM:
+        nres, smem = layers, fixed + layers * layer_bytes
+    else:
+        nres = (MAX_SMEM - fixed - 2 * layer_bytes) // layer_bytes
+        if nres < 0:
+            raise ValueError(f"body_mma needs {fixed + 2 * layer_bytes} bytes of shared memory "
+                             f"a block at B = {B}, over the {MAX_SMEM} a block can have")
+        smem = fixed + (nres + 2) * layer_bytes
+    return {"ctas": CTAS, "threads": THREADS, "rows_in": rin, "rows_out": rout,
+            "rows_f1": rf1, "k_steps": (kt, kh, ko, kf), "layer_bytes": layer_bytes,
+            "f1_bytes": f1_bytes, "resident_layers": nres, "smem_bytes": smem}
+
+
+def _frags(a: torch.Tensor) -> torch.Tensor:
+    """(..., rows, K) -> (..., K / 16 x rows x 16) in mma.m16n8k16's A
+    fragment order: k-step k, row g, lane quarter t hold A[g][16k + 2t,
+    + 1, + 8, + 9], the 8 bytes one lane reads."""
+    *lead, rows, k = a.shape
+    n = len(lead)
+    perm = list(range(n)) + [n + 1, n, n + 3, n + 2, n + 4]
+    return a.reshape(*lead, rows, k // 16, 2, 4, 2).permute(perm).reshape(*lead, -1)
+
+
+def _unfrags(f: torch.Tensor, rows: int, k: int) -> torch.Tensor:
+    """The inverse of _frags: (..., K / 16 x rows x 16) -> (..., rows, K)."""
+    *lead, _ = f.shape
+    n = len(lead)
+    perm = list(range(n)) + [n + 1, n, n + 3, n + 2, n + 4]
+    return f.reshape(*lead, k // 16, rows, 4, 2, 2).permute(perm).reshape(*lead, rows, k)
+
+
+def _in_rows(g2: int) -> torch.Tensor:
+    """(CTAS, rows_in): block i's rows of phase in, its gate pairs' a-rows
+    then their g-rows."""
+    pairs = g2 // CTAS
+    a = torch.arange(g2).reshape(CTAS, pairs)
+    return torch.cat([a, a + g2], 1)
+
+
+def _out_rows(s: int, r: int) -> torch.Tensor:
+    """(CTAS, rows_out): block i's rows of phase out in [w_skip | w_out]'s
+    columns, its S / CTAS skip rows then its R / CTAS channels of h, so
+    that the ring writes and h's publication spread over every block."""
+    return torch.cat([torch.arange(s).reshape(CTAS, s // CTAS),
+                      s + torch.arange(r).reshape(CTAS, r // CTAS)], 1)
+
+
+def frag_pack(w: dict) -> torch.Tensor:
+    """body_mma's weights: (L, CTAS, layer_bytes / 2) bf16, block i's run of
+    a layer = [phase in: its rows_in rows of [W0; W1; W2; Wc; 0] (K = 2R
+    then R + C padded to 16) | phase out: its rows_out rows of [w_skip |
+    w_out]], each in fragment order (see _frags)."""
+    layers, r, g, s_ch, c = dims(w)
+    g2 = g // 2
+    kh = (r + c + 15) // 16 * 16
+    w_cat = torch.cat([w["w_dil"][:, 0], w["w_dil"][:, 1], w["w_dil"][:, 2], w["w_c"],
+                       w["w_c"].new_zeros(layers, kh - r - c, g)], 1)  # (L, K, G)
+    a_in = w_cat.transpose(1, 2)[:, _in_rows(g2)]  # (L, CTAS, rows_in, K)
+    a_out = torch.cat([w["w_skip"], w["w_out"]], 2).transpose(1, 2)  # (L, S + R, G/2)
+    a_out = a_out[:, _out_rows(s_ch, r)]  # (L, CTAS, rows_out, G/2)
+    return torch.cat([_frags(a_in[..., :2 * r]), _frags(a_in[..., 2 * r:]), _frags(a_out)],
+                     2).contiguous()
+
+
+def frag_unpack(frag: torch.Tensor, r: int, g: int, s: int, c: int) -> dict[str, torch.Tensor]:
+    """The weights frag_pack packed, as w_dil, w_c, w_skip and w_out."""
+    layers, g2 = frag.shape[0], g // 2
+    kh = (r + c + 15) // 16 * 16
+    rin, rout = 2 * (g2 // CTAS), (s + r) // CTAS
+    n_taps, n_h = rin * 2 * r, rin * kh
+    a_in = torch.cat([_unfrags(frag[..., :n_taps], rin, 2 * r),
+                      _unfrags(frag[..., n_taps:n_taps + n_h], rin, kh)], 3)
+    w_cat = frag.new_zeros(layers, g, 2 * r + kh)
+    w_cat[:, _in_rows(g2)] = a_in
+    w_cat = w_cat.transpose(1, 2)
+    a_out = frag.new_zeros(layers, s + r, g2)
+    a_out[:, _out_rows(s, r)] = _unfrags(frag[..., n_taps + n_h:], rout, g2)
+    so = a_out.transpose(1, 2)
+    return {"w_dil": torch.stack([w_cat[:, :r], w_cat[:, r:2 * r], w_cat[:, 2 * r:3 * r]], 1),
+            "w_c": w_cat[:, 3 * r:3 * r + c], "w_skip": so[..., :s], "w_out": so[..., s:]}
+
+
+def f1_frag_pack(w_f1: torch.Tensor) -> torch.Tensor:
+    """The head's final1 for body_mma: (CTAS, f1_bytes / 2) bf16, block i's
+    rows_f1 output columns of w_f1 (S, S), (in, out), in fragment order."""
+    s = w_f1.shape[0]
+    return _frags(w_f1.t().reshape(CTAS, s // CTAS, s)).contiguous()
 
 
 def prepare(w: dict, device: str | torch.device) -> dict[str, torch.Tensor]:
@@ -136,10 +282,14 @@ def streamed_plain(w: dict, *, B: int, T: int, dil):
 
 def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     if not getattr(lib, "_dvc_typed", False):
-        lib.dvc_probe_body.argtypes = [_common.I32] * 14 + [_common.VP, _common.I32] + \
-            [_common.VP] * 15
-        lib.dvc_probe_body.restype = _common.I32
-        lib.dvc_probe_body_error_string.argtypes = [_common.I32]
+        i32, vp = _common.I32, _common.VP
+        lib.dvc_probe_body_persistent.argtypes = [i32] * 12 + [vp, i32] + [vp] * 17
+        lib.dvc_probe_body_persistent.restype = i32
+        lib.dvc_probe_body_streamed.argtypes = [i32] * 9 + [vp, i32] + [vp] * 9
+        lib.dvc_probe_body_streamed.restype = i32
+        lib.dvc_probe_body_plan.argtypes = [i32] * 8 + [vp]
+        lib.dvc_probe_body_plan.restype = i32
+        lib.dvc_probe_body_error_string.argtypes = [i32]
         lib.dvc_probe_body_error_string.restype = ctypes.c_char_p
         lib._dvc_typed = True
     return lib
@@ -150,8 +300,10 @@ def launch(w: dict, *, persistent: bool, cond_rule: str, bias: bool, scaled_skip
            lib: ctypes.CDLL | None = None):
     """One call of csrc/probe_body.cu on the pack in ``w`` (see prepare), on a
     card: (out, skip), out the final h (1, B, R) or, with row_out, (T, 1, B).
-    ``lib``: a build of an edited copy of the source (ablate_body's
-    variants) in place of the source's own."""
+    persistent: body_mma (P2, P4); else body_in/body_out (P3: the bias, the
+    plain skip sum, no row output, no head).  ``lib``: a build of an edited
+    copy of the source (ablate_body's variants) in place of the source's
+    own."""
     if cond_rule not in COND_RULES:
         raise ValueError(f"cond_rule must be one of {COND_RULES}, got {cond_rule!r}")
     if B < 1 or T < 0:
@@ -167,7 +319,30 @@ def launch(w: dict, *, persistent: bool, cond_rule: str, bias: bool, scaled_skip
         raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
     bf, f32 = torch.bfloat16, torch.float32
     ptr = _common.cuda_checked
-    ptrs = [ptr(w["w_in"], "w_in", dev, bf), ptr(w["w_so"], "w_so", dev, bf),
+    slots = int(2 * dil.sum())
+    ring = torch.empty(slots, B, r, dtype=bf, device=dev)
+    h = torch.empty(1, B, r, device=dev)
+    skip = torch.empty(B, s_ch, device=dev)
+    lib = _typed(lib or _build.load("probe_body"))
+    if not persistent:
+        if not bias or scaled_skip or row_out or head or cond_rule == "input":
+            raise ValueError("the per-layer kernels run P3: the bias, the plain skip sum, cond "
+                             "rule 'step' or 'layer', no row output and no head")
+        gated = torch.empty(B, g // 2, device=dev)
+        cond = torch.empty(B, c, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.dvc_probe_body_streamed(
+                COND_RULES.index(cond_rule), B, T, layers, r, g, s_ch, c, w["w_in"].shape[2],
+                dil.ctypes.data, slots, ptr(w["w_in"], "w_in", dev, bf),
+                ptr(w["w_so"], "w_so", dev, bf), ptr(w["b_in"], "b_in", dev, f32),
+                ring.data_ptr(), h.data_ptr(), skip.data_ptr(), gated.data_ptr(),
+                cond.data_ptr(), stream)
+        _common.check(lib, err, what, "dvc_probe_body_error_string")
+        return h, skip
+    body_plan(B, layers, r, g, s_ch, c, head=head, cond_rule=cond_rule)
+    ptrs = [ptr(w["w_frag"], "w_frag", dev, bf),
+            ptr(w["w_f1_frag"], "w_f1_frag", dev, bf) if head else None,
             ptr(w["b_in"], "b_in", dev, f32) if bias else None]
     if cond_rule == "input":
         if tuple(w["cond_in"].shape) != (T, B, c):
@@ -176,28 +351,41 @@ def launch(w: dict, *, persistent: bool, cond_rule: str, bias: bool, scaled_skip
     else:
         ptrs.append(None)
     if head:
-        ptrs += [ptr(w["w_first_v"], "w_first", dev, f32), ptr(w["w_f1_t"], "w_f1", dev, bf),
-                 ptr(w["w_f2_0"], "w_f2", dev, f32)]
+        ptrs += [ptr(w["w_first_v"], "w_first", dev, f32), ptr(w["w_f2_0"], "w_f2", dev, f32)]
     else:
-        ptrs += [None] * 3
-    slots = int(2 * dil.sum())
-    ring = torch.empty(slots, B, r, dtype=bf, device=dev)
-    h = torch.empty(1, B, r, device=dev)
-    skip = torch.empty(B, s_ch, device=dev)
-    gated = torch.empty(B, g // 2, device=dev)
-    cond = torch.empty(B, c, device=dev)
+        ptrs += [None] * 2
+    scratch = [torch.empty(B, n, dtype=bf, device=dev) for n in (r, c, g // 2, s_ch)]
     o1 = torch.empty(B, s_ch, device=dev)
+    bar = torch.empty(4, dtype=torch.int32, device=dev)  # the grid barrier's arrival count
     out = torch.empty(T, 1, B, device=dev) if row_out else None
-    lib = _typed(lib or _build.load("probe_body"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dvc_probe_body(
-            int(persistent), COND_RULES.index(cond_rule), int(bias), int(scaled_skip), int(row_out),
-            int(head), B, T, layers, r, g, s_ch, c, w["w_in"].shape[2], dil.ctypes.data, slots,
-            *ptrs, ring.data_ptr(), h.data_ptr(), skip.data_ptr(), gated.data_ptr(),
-            cond.data_ptr(), o1.data_ptr(), None if out is None else out.data_ptr(), stream)
+        err = lib.dvc_probe_body_persistent(
+            COND_RULES.index(cond_rule), int(bias), int(scaled_skip), int(row_out), int(head),
+            B, T, layers, r, g, s_ch, c, dil.ctypes.data, slots, *ptrs, ring.data_ptr(),
+            *(x.data_ptr() for x in scratch), o1.data_ptr(), bar.data_ptr(), h.data_ptr(),
+            skip.data_ptr(), None if out is None else out.data_ptr(), stream)
     _common.check(lib, err, what, "dvc_probe_body_error_string")
     return (out if row_out else h), skip
+
+
+def device_plan(B: int, layers: int, r: int, g: int, s: int, c: int, *, head: bool = False,
+                cond_rule: str = "step", device: str | torch.device = "cuda") -> dict[str, int]:
+    """body_mma's plan as the card's build computes it: body_plan's keys
+    that the kernel reports, plus blocks_per_sm (cudaOccupancyMaxActive-
+    BlocksPerMultiprocessor)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the device plan is the card's: it needs a CUDA device")
+    lib = _typed(_build.load("probe_body"))
+    plan = (ctypes.c_int * 9)()
+    with torch.cuda.device(dev):
+        err = lib.dvc_probe_body_plan(B, layers, r, g, s, c, int(head),
+                                      COND_RULES.index(cond_rule), ctypes.addressof(plan))
+    _common.check(lib, err, "bench_body plan", "dvc_probe_body_error_string")
+    keys = ("ctas", "threads", "rows_in", "rows_out", "rows_f1", "layer_bytes",
+            "resident_layers", "smem_bytes", "blocks_per_sm")
+    return dict(zip(keys, plan))
 
 
 def _on_cuda(w: dict) -> bool:
@@ -209,7 +397,7 @@ def _on_cuda(w: dict) -> bool:
 
 def resident(w: dict, *, B: int, T: int, dil, cond_rule: str = "step"):
     """P2 over T steps -> (h (1, B, R), skip (B, S)).  On a CUDA tensor one
-    cooperative launch of the kernel, or an error; on a CPU tensor the plain
+    cooperative launch of body_mma, or an error; on a CPU tensor the plain
     twin.  ``cond_rule`` other than "step" is the wrong rule, for checks."""
     if not _on_cuda(w):
         return _plain(w, cond_rule, B=B, T=T, dil=dil)

@@ -13,9 +13,9 @@ production features added stage by stage (make(stage), :29-129):
   stage 4  + the per-layer bias (:77-78).
 
 ``body2`` launches csrc/probe_body.cu on a CUDA tensor (one cooperative
-launch, as P2) or raises, and runs body2_plain on a CPU tensor; both return
-(out, skip), skip (B, S) being the last step's skip sum.  ``body2.launches``
-counts kernel launches by stage.
+launch of body_mma, as P2) or raises, and runs body2_plain on a CPU tensor;
+both return (out, skip), skip (B, S) being the last step's skip sum.
+``body2.launches`` counts kernel launches by stage.
 
     python -m dvc_tpu_torch.tools.bench_body2 [stage ...] [--device cuda|cpu]
 """
@@ -60,11 +60,14 @@ def weights(rng: np.random.RandomState | None = None, *, B: int = B, R: int = R,
 
 def prepare(w: dict, device: str | torch.device) -> dict[str, torch.Tensor]:
     """w on ``device`` with the kernel's pack beside it: bench_body.pack
-    with b_dil as the bias, w_f1 output-major (row o = w_f1[:, o]), final2's
-    column 0 (the only one the head reads) and w_first as a vector."""
+    with b_dil as the bias, w_f1 in body_mma's fragment order (where it
+    takes the widths), final2's column 0 (the only one the head reads) and
+    w_first as a vector."""
     w = {k: v.to(device).contiguous() for k, v in w.items()}
-    return {**w, **_body.pack(w, "b_dil"),
-            "w_f1_t": w["w_f1"].t().contiguous(), "w_f2_0": w["w_f2"][:, 0].contiguous(),
+    packed = _body.pack(w, "b_dil")
+    if "w_frag" in packed:
+        packed["w_f1_frag"] = _body.f1_frag_pack(w["w_f1"])
+    return {**w, **packed, "w_f2_0": w["w_f2"][:, 0].contiguous(),
             "w_first_v": w["w_first"].reshape(-1).contiguous()}
 
 
@@ -120,7 +123,7 @@ def body2_plain(w: dict, stage: int, *, B: int, T: int, dil) -> tuple[torch.Tens
 
 def body2(w: dict, stage: int, *, B: int, T: int, dil) -> tuple[torch.Tensor, torch.Tensor]:
     """P4 at ``stage`` over T steps -> (out, skip).  On a CUDA tensor one
-    cooperative launch of the kernel, or an error; on a CPU tensor
+    cooperative launch of body_mma, or an error; on a CPU tensor
     body2_plain."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage}")

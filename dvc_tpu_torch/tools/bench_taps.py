@@ -3,9 +3,12 @@ reads inside a serial recurrence, each of L layers h = tanh((x_{t-d} +
 x_{t-2d} + h) @ w), the layer input written into the ring.
 
   taps        the wrapper: a CUDA tensor launches csrc/bench_taps.cu (one
-              cooperative launch, see there) or raises; a CPU tensor runs
-              taps_plain.  ``taps.launches`` counts kernel launches by mode;
+              cluster launch, a cluster of CTAs per batch row, see there)
+              or raises; a CPU tensor runs taps_plain.  ``taps.launches``
+              counts kernel launches by mode;
   taps_plain  the same float32 arithmetic and ring in PyTorch;
+  cluster_plan  the kernel's plan (cluster size, channels and shared memory
+              a CTA), as the .cu file computes it;
   make        the probe at its constants (B=8, R=512, T=2000, 24 layers);
   bench       one warm call, the best of 3, printed as the JAX probe does.
 
@@ -27,6 +30,8 @@ from dvc_tpu_torch.utils.device import resolve_device
 
 MODES = ("dynamic", "static", "compute")
 B, R, T, LAYERS = 8, 512, 2000, 24
+# csrc/bench_taps.cu's constants (held to the source by the tests)
+CLUSTER, COLS, THREADS, MAX_SMEM = 8, 64, 512, 232448
 
 
 def default_w(r: int = R) -> np.ndarray:
@@ -38,6 +43,26 @@ def ring_slots(dil: np.ndarray) -> int:
     """Slots the ring needs: the dynamic segments (sum of 2d) or the static
     pairs (2L), whichever is longer (the probe's BUF = 504 covers both)."""
     return max(int(2 * dil.sum()), 2 * len(dil))
+
+
+def cluster_plan(r: int, slots: int, mode: str = "dynamic") -> dict[str, int]:
+    """What one batch row's cluster of the kernel holds: CLUSTER CTAs of
+    THREADS threads, each owning COLS channels of h and the ring and those
+    columns of w (kept in registers, w_regs a thread), its ring slice,
+    u's two buffers, two buffers of partial sums and their two mbarriers in
+    shared memory (smem_bytes; compute mode has no ring).  Raises
+    ValueError for a plan the kernel refuses."""
+    if r != CLUSTER * COLS:
+        raise ValueError(f"the cluster plan takes R = {CLUSTER} x {COLS} = {CLUSTER * COLS} "
+                         f"channels, got R = {r}")
+    ring = 0 if mode == "compute" else slots
+    slices = THREADS // COLS
+    smem = (ring * COLS + 2 * r + 2 * slices * COLS) * 4 + 16  # and two mbarriers
+    if smem > MAX_SMEM:
+        raise ValueError(f"a ring of {slots} slots needs {smem} bytes of shared memory a CTA, "
+                         f"over the {MAX_SMEM} a block can have")
+    return {"cluster": CLUSTER, "cols": COLS, "threads": THREADS, "w_regs": r // slices,
+            "ring_bytes": ring * COLS * 4, "smem_bytes": smem}
 
 
 @torch.no_grad()
@@ -67,8 +92,10 @@ def _lib():
     lib = _build.load("bench_taps")
     if not getattr(lib, "_dvc_typed", False):
         lib.dvc_probe_taps.argtypes = [_common.I32] * 5 + [_common.VP, _common.I32] + \
-            [_common.VP] * 5
+            [_common.VP] * 3
         lib.dvc_probe_taps.restype = _common.I32
+        lib.dvc_probe_taps_plan.argtypes = [_common.I32, _common.I32, _common.VP]
+        lib.dvc_probe_taps_plan.restype = _common.I32
         lib.dvc_probe_taps_error_string.argtypes = [_common.I32]
         lib.dvc_probe_taps_error_string.restype = ctypes.c_char_p
         lib._dvc_typed = True
@@ -91,21 +118,35 @@ def taps(mode: str, w: torch.Tensor, *, B: int, T: int, dil) -> torch.Tensor:
     if w.device.type != "cuda":
         raise ValueError(f"unsupported device {w.device}")
     dev, r, slots = w.device, w.shape[0], ring_slots(dil)
+    cluster_plan(r, slots, mode)
     w_ptr = _common.cuda_checked(w, "w", dev, torch.float32)
-    ring = torch.empty(slots, B, r, device=dev)
-    h = torch.empty(2, B, r, device=dev)
     out = torch.empty(1, B, r, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dvc_probe_taps(MODES.index(mode), B, r, T, len(dil), dil.ctypes.data, slots,
-                                 w_ptr, ring.data_ptr(), h.data_ptr(), out.data_ptr(), stream)
+                                 w_ptr, out.data_ptr(), stream)
     _common.check(lib, err, f"bench_taps {mode}", "dvc_probe_taps_error_string")
     taps.launches[mode] += 1
     return out
 
 
 taps.launches = collections.Counter()
+
+
+def device_plan(r: int, slots: int, device: str | torch.device = "cuda") -> dict[str, int]:
+    """The kernel's own plan on the card, as cluster_plan's keys plus
+    max_active_clusters (cudaOccupancyMaxActiveClusters): clusters, so batch
+    rows, that run at once."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the device plan is the card's: it needs a CUDA device")
+    lib = _lib()
+    plan = (ctypes.c_int * 5)()
+    with torch.cuda.device(dev):
+        err = lib.dvc_probe_taps_plan(r, slots, ctypes.addressof(plan))
+    _common.check(lib, err, "bench_taps plan", "dvc_probe_taps_error_string")
+    return dict(zip(("cluster", "cols", "threads", "smem_bytes", "max_active_clusters"), plan))
 
 
 def make(mode: str, w=None, *, B: int = B, R: int = R, T: int = T, layers: int = LAYERS,

@@ -4,7 +4,8 @@ adversarial train step in each mode (the loss terms, both nets' gradients
 and updated parameters, adv_ce and adv_acc), the z-score's population std,
 the remat step (against the plain step and against dvc_tpu's remat step,
 the BatchNorm statistics moved once), the Trainer's guards, and
-`train --adv_cof` through the CLI with dvc_tpu's `convert` on its run.
+`train --adv_cof` through the CLI with dvc_tpu's `convert` on its run,
+and the config.json of both packages' `train` (equal as text).
 
 The same seeded numpy inputs and weights go to both packages (the
 adversary's through adversary_state_dict_from_jax); dvc_tpu's noise is
@@ -326,3 +327,49 @@ def test_cli_train_adv_then_dvc_tpu_convert(tmp_path, monkeypatch, capsys):
     assert jcli.main(["convert", *common, "--src_spk", "p225", "--trg_spk", "p226",
                       "--num_utterances", "1", "--vocoder", "none"]) == 0
     assert "loaded checkpoint at epoch 2" in capsys.readouterr().out
+
+
+def test_config_json_equals_dvc_tpus():
+    """The port's Config serializes as dvc_tpu's, as text: the same fields
+    in the same order with the same defaults."""
+    from dvc_tpu.config import Config as JaxConfig
+    from dvc_tpu_torch.config import Config
+    assert Config().to_json() == JaxConfig().to_json()
+
+
+class _StopAfterConfig(Exception):
+    pass
+
+
+def _stop(*args, **kwargs):
+    raise _StopAfterConfig
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--adv_cof", "1", "--adv_mode", "grl", "--lr", "3e-4", "--latent-size", "16",
+     "--speaker_size", "2", "--checkpoint-format", "msgpack"],
+], ids=["defaults", "adv-and-widths"])
+def test_cli_train_config_json_equals_dvc_tpus(tmp_path, monkeypatch, flags):
+    """`train` writes the config.json that dvc_tpu's `train` writes for the
+    same flags, byte for byte (each stopped right after writing it, before
+    its Trainer is built); the adversary's width is the corpus's speakers."""
+    import dvc_tpu.train.trainer as jtrainer
+    import dvc_tpu_torch.train.trainer as ptrainer
+    _mel_tree(str(tmp_path / "mels"), speakers=("p225", "p226", "p227"), utts=4,
+              t_range=(20, 40))
+    monkeypatch.setattr(ptrainer, "Trainer", _stop)
+    monkeypatch.setattr(jtrainer, "Trainer", _stop)
+    texts = []
+    for main, name in ((cli.main, "port"), (jcli.main, "jax")):
+        run = tmp_path / name
+        args = ["train", "--dataset_fp", str(tmp_path / "mels"), "--log_dir", str(run),
+                "--samples_length", "16", "--batch-size", "2", "--epochs", "3", *flags]
+        with pytest.raises(_StopAfterConfig):
+            main(args + (["--device", "cpu"] if name == "port" else []))
+        texts.append((run / "config.json").read_text())
+    assert texts[0] == texts[1]
+    cfg = json.loads(texts[0])
+    assert cfg["train"]["donate_state"] is True and cfg["mesh"]["data_parallel"] == -1
+    if flags:
+        assert (cfg["loss"]["adv_speakers"], cfg["vae"]["latent_dim"]) == (3, 16)

@@ -27,6 +27,7 @@ MODULES = [
     "dvc_tpu_torch.serve", "dvc_tpu_torch.cli.run", "dvc_tpu_torch.tools._common",
     "dvc_tpu_torch.tools.bench_taps", "dvc_tpu_torch.tools.bench_body",
     "dvc_tpu_torch.tools.bench_body2", "dvc_tpu_torch.tools.ablate_body",
+    "dvc_tpu_torch.tools.bench_sync",
     "dvc_tpu_torch.utils.msgpack", "dvc_tpu_torch.native", "dvc_tpu_torch.native._build",
     "dvc_tpu_torch.native.flac", "dvc_tpu_torch.native.world",
     "dvc_tpu_torch.data.preprocess", "dvc_tpu_torch.ops.world", "dvc_tpu_torch.eval",

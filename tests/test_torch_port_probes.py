@@ -3,9 +3,15 @@ resident/streamed, P4 bench_body2 stages 0-4): each plain twin in
 dvc_tpu_torch.tools against the JAX probe run in TPU interpret mode on the
 CPU, with the JAX module's constants narrowed by monkeypatch (L=4, R=G=64,
 S=32, C=16, B=2, T=20; BUF stays 504 >= sum 2d).  Errors are max |port -
-jax| over max |jax|: float32 (P1) 1e-5, the bf16 paths 2e-2."""
+jax| over max |jax|: float32 (P1) 1e-5, the bf16 paths 2e-2.
+
+What the kernels' host side plans, which the CPU can hold: P1's cluster
+plan and body_mma's (P2, P4) tile and shared-memory plan, their constants
+against the .cu sources, and body_mma's fragment pack, unpacked bit for bit
+and multiplied out lane by lane as mma.m16n8k16 reads it."""
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -14,10 +20,12 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from dvc_tpu_torch.tools import _common, ablate_body, bench_body, bench_body2, bench_taps
+from dvc_tpu_torch.tools import (_common, ablate_body, bench_body, bench_body2, bench_sync,
+                                  bench_taps)
 from dvc_tpu_torch.utils.convert import probe_weights_from_jax
 
 TOOLS = Path(__file__).resolve().parents[1] / "tools"
+CSRC = Path(__file__).resolve().parents[1] / "dvc_tpu_torch" / "kernels" / "csrc"
 NARROW = dict(B=2, R=64, G=64, S=32, C=16, T=20, L=4)
 F32_TOL, BF16_TOL = 1e-5, 2e-2
 
@@ -177,9 +185,25 @@ def test_body_make_on_cpu_matches_plain():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# the narrowest widths body_mma takes (128 blocks: one gate pair, one skip
+# row, one channel of h and one final1 column a block)
+FRAG = dict(R=128, G=256, S=128, C=16)
+
+
 def test_pack_layout():
-    """The kernel's output-major pack holds the probe's columns."""
+    """P3's output-major pack holds the probe's columns; body_mma's
+    fragment pack, where body_mma takes the widths, unpacks to the weights
+    bit for bit (at the probes' narrow test widths it is not made)."""
+    frag_w = bench_body.weights(**FRAG, layers=3)
+    frag = bench_body.pack(frag_w)["w_frag"]
+    plan = bench_body.body_plan(8, 3, 128, 256, 128, 16)
+    assert frag.dtype == torch.bfloat16
+    assert frag.shape == (3, bench_body.CTAS, plan["layer_bytes"] // 2)
+    back = bench_body.frag_unpack(frag, 128, 256, 128, 16)
+    for k, v in back.items():
+        assert torch.equal(v.view(torch.int16), frag_w[k].view(torch.int16)), k
     w = _port_weights()
+    assert "w_frag" not in bench_body.pack(w)
     p = bench_body.pack(w)
     R, C, S, G2 = NARROW["R"], NARROW["C"], NARROW["S"], NARROW["G"] // 2
     L, G = NARROW["L"], NARROW["G"]
@@ -191,6 +215,165 @@ def test_pack_layout():
     assert torch.equal(p["w_so"][1, 3], w["w_skip"][1, :, 3])
     assert torch.equal(p["w_so"][1, S + 7], w["w_out"][1, :, 7])
     assert p["w_so"].shape == (L, S + R, G2)
+
+
+def _mma_rows(frag: torch.Tensor, rows: int, k: int, x: torch.Tensor) -> torch.Tensor:
+    """D = A x^T of one block's tile as mma.m16n8k16 computes it from the
+    fragments: at k-step kk lane (g, t) holds A[g][16kk + 2t, + 1] in its
+    first register and A[g][16kk + 8 + 2t, + 1] in its third, and the batch
+    column n's lane supplies x[n][16kk + 2t, + 1] and [.. + 8, + 9] (PTX ISA,
+    the m16n8k16 .bf16 fragment layouts).  x (n, K) -> (rows, n), float64."""
+    f = frag.double().reshape(k // 16, rows, 4, 4)
+    xd = x.double()
+    d = torch.zeros(rows, x.shape[0], dtype=torch.float64)
+    for kk in range(k // 16):
+        for g in range(rows):
+            for t in range(4):
+                a0, a1, a4, a5 = f[kk, g, t]
+                c0 = 16 * kk + 2 * t
+                d[g] += (a0 * xd[:, c0] + a1 * xd[:, c0 + 1] + a4 * xd[:, c0 + 8]
+                         + a5 * xd[:, c0 + 9])
+    return d
+
+
+def test_frag_pack_multiplies_out_as_the_matmul():
+    """Block i's fragments of a layer, read lane by lane as the tensor cores
+    read them, give its rows of x2 @ W0 + x1 @ W1 + h @ W2 + cond @ Wc (its
+    gate pairs' a- and g-columns), of gated @ [w_skip | w_out] (its skip
+    rows, then its channels of h), and of final1."""
+    w = bench_body.weights(**FRAG, layers=3)
+    r, g, s_ch, c = FRAG["R"], FRAG["G"], FRAG["S"], FRAG["C"]
+    g2, ctas = g // 2, bench_body.CTAS
+    plan = bench_body.body_plan(4, 3, r, g, s_ch, c, head=True, cond_rule="input")
+    rin, rout, rf1 = plan["rows_in"], plan["rows_out"], plan["rows_f1"]
+    kt, kh, ko, kf = (16 * k for k in plan["k_steps"])
+    frag = bench_body.frag_pack(w)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(4, kt + kh).astype(np.float32)).to(torch.bfloat16)
+    x[:, kt + r + c:] = 0  # the h part's pad
+    wcat = torch.cat([w["w_dil"][1, 0], w["w_dil"][1, 1], w["w_dil"][1, 2], w["w_c"][1]], 0)
+    ref_in = x[:, :kt + r + c].double() @ wcat.double()  # (4, G)
+    gated = torch.from_numpy(rng.randn(4, g2).astype(np.float32)).to(torch.bfloat16)
+    ref_out = gated.double() @ torch.cat([w["w_skip"][1], w["w_out"][1]], 1).double()
+    w_f1 = torch.from_numpy(rng.randn(s_ch, s_ch).astype(np.float32)).to(torch.bfloat16)
+    f1 = bench_body.f1_frag_pack(w_f1)
+    assert f1.shape == (ctas, plan["f1_bytes"] // 2)
+    skip = torch.from_numpy(rng.randn(4, s_ch).astype(np.float32)).to(torch.bfloat16)
+    ref_f1 = skip.double() @ w_f1.double()
+    for i in (0, 37, ctas - 1):
+        blk = frag[1, i]
+        d_in = (_mma_rows(blk[:rin * kt], rin, kt, x[:, :kt])
+                + _mma_rows(blk[rin * kt:rin * (kt + kh)], rin, kh, x[:, kt:]))
+        cols = [i * (g2 // ctas) + p for p in range(g2 // ctas)]
+        want = ref_in[:, cols + [col + g2 for col in cols]].t()
+        torch.testing.assert_close(d_in, want, rtol=1e-12, atol=1e-12)
+        d_out = _mma_rows(blk[rin * (kt + kh):], rout, ko, gated)
+        rs, rh = s_ch // ctas, r // ctas
+        cols = [i * rs + q for q in range(rs)] + [s_ch + i * rh + q for q in range(rh)]
+        torch.testing.assert_close(d_out, ref_out[:, cols].t(), rtol=1e-12, atol=1e-12)
+        d_f1 = _mma_rows(f1[i], rf1, kf, skip)
+        torch.testing.assert_close(d_f1, ref_f1[:, i * rf1:(i + 1) * rf1].t(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("B,head,resident,smem", [
+    (8, False, 10, 227552), (9, False, 8, 225888), (1, True, 10, 228576), (16, True, 8, 226912),
+], ids=["B8", "B9", "B1-head", "B16-head"])
+def test_body_plan_at_the_probes_widths(B, head, resident, smem):
+    """body_mma's plan at R = G = 512, S = 256, C = 80, 24 layers: 4 rows in,
+    6 out (2 skip, 4 of h), 2 of final1 a block, 16,000 bytes of a layer's
+    fragments, as many resident layers as the shared memory holds beside
+    the staging of 1 or 2 n-tiles and two streamed slots."""
+    plan = bench_body.body_plan(B, 24, 512, 512, 256, 80, head=head,
+                                cond_rule="input" if head else "step")
+    assert (plan["ctas"], plan["rows_in"], plan["rows_out"], plan["rows_f1"]) == (128, 4, 6, 2)
+    assert plan["k_steps"] == (64, 37, 16, 16) and plan["layer_bytes"] == 16000
+    assert plan["f1_bytes"] == (1024 if head else 0)
+    assert (plan["resident_layers"], plan["smem_bytes"]) == (resident, smem)
+    assert smem <= bench_body.MAX_SMEM
+
+
+@pytest.mark.parametrize("kw,why", [
+    (dict(B=17), "B = 17"),
+    (dict(layers=1), "1 layers"),
+    (dict(g=384), "split over 128 blocks"),
+    (dict(c=12), "multiple of 16"),
+    (dict(head=True, cond_rule="step"), "with the head"),
+    (dict(g=4096), "rows a block"),
+], ids=["B", "layers", "G", "C", "head-step", "rows"])
+def test_body_plan_refuses(kw, why):
+    args = dict(B=8, layers=24, r=512, g=512, s=256, c=80)
+    args.update(kw)
+    with pytest.raises(ValueError, match=why):
+        bench_body.body_plan(args.pop("B"), args.pop("layers"), args.pop("r"), args.pop("g"),
+                             args.pop("s"), args.pop("c"), **args)
+
+
+def _code(name):
+    """A .cu source without its comments."""
+    return "\n".join(ln.split("//")[0] for ln in (CSRC / name).read_text().splitlines())
+
+
+def _cu_constants(name):
+    return dict(re.findall(r"constexpr int (k\w+) = (\d+);", (CSRC / name).read_text()))
+
+
+def test_body_plan_constants_match_kernel_source():
+    found = _cu_constants("probe_body.cu")
+    src = (CSRC / "probe_body.cu").read_text()
+    assert int(found["kCtas"]) == bench_body.CTAS
+    assert "constexpr int kMmaBlock = kThreads + 32;" in src
+    assert int(found["kThreads"]) + 32 == bench_body.THREADS
+    for cu, py in (("kMaxNt", "MAX_NT"), ("kMaxRows", "MAX_ROWS"), ("kPad", "PAD"),
+                   ("kOwnB", "OWN_B"), ("kMaxSmem", "MAX_SMEM")):
+        assert int(found[cu]) == getattr(bench_body, py), cu
+
+
+def test_body_mma_runs_on_the_tensor_cores_with_bulk_copies():
+    """P2 and P4 launch body_mma, whose dots are mma.sync and whose weights
+    come by cp.async.bulk; the first design's body_persistent is gone."""
+    src = _code("probe_body.cu")
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in src
+    assert not re.search(r"\bbody_persistent\b", src) and "grid_group" not in src
+    assert re.findall(r"cudaLaunchCooperativeKernel\(\(const void\*\)(\w+)", src) == ["body_mma"]
+
+
+def test_cluster_plan():
+    """P1's plan: a cluster of 8 CTAs a batch row, 64 channels and 64 w
+    values a thread (in registers) each, the ring slice of 504 slots x 64
+    channels, u's two buffers and the partial sums in shared memory."""
+    plan = bench_taps.cluster_plan(512, 504)
+    assert (plan["cluster"], plan["cols"], plan["threads"], plan["w_regs"]) == (8, 64, 512, 64)
+    assert plan["ring_bytes"] == 504 * 64 * 4
+    assert plan["smem_bytes"] == (504 * 64 + 2 * 512 + 2 * 8 * 64) * 4 + 16
+    assert bench_taps.cluster_plan(512, 504, "compute")["ring_bytes"] == 0
+    dil = _common.geometry(bench_taps.LAYERS)[0]
+    assert bench_taps.ring_slots(dil) == 504
+
+
+@pytest.mark.parametrize("r,slots,why", [(256, 504, "R = 8 x 64"), (1024, 504, "R = 8 x 64"),
+                                         (512, 900, "over the")], ids=["narrow", "wide", "ring"])
+def test_cluster_plan_refuses(r, slots, why):
+    with pytest.raises(ValueError, match=why):
+        bench_taps.cluster_plan(r, slots)
+    if r == 512:  # what a mode without a ring still takes
+        assert bench_taps.cluster_plan(r, slots, "compute")["ring_bytes"] == 0
+
+
+def test_cluster_kernel_source():
+    """P1 is one cluster launch with constants as the wrapper plans them,
+    its exchange a st.async onto the peers' mbarriers: no grid barrier, no
+    cooperative launch."""
+    found = _cu_constants("bench_taps.cu")
+    for cu, py in (("kCluster", "CLUSTER"), ("kThreads", "THREADS"), ("kCols", "COLS"),
+                   ("kMaxSmem", "MAX_SMEM")):
+        assert int(found[cu]) == getattr(bench_taps, py), cu
+    code = _code("bench_taps.cu")
+    assert "cudaLaunchAttributeClusterDimension" in code and "cudaLaunchKernelEx" in code
+    assert "st.async.shared::cluster.mbarrier::complete_tx::bytes" in code
+    for gone in ("grid_group", "this_grid", "cudaLaunchCooperativeKernel", "grid.sync"):
+        assert gone not in code, gone
 
 
 # --- P4 ---------------------------------------------------------------------
@@ -228,8 +411,12 @@ def test_ablation_edits_match_the_source(name):
     lambda: bench_body.main(["resident"]),
     lambda: bench_body2.main(["4"]),
     lambda: ablate_body.main([]),
+    lambda: bench_taps.device_plan(512, 504),
+    lambda: bench_body.device_plan(8, 24, 512, 512, 256, 80),
+    lambda: bench_sync.main([]),
 ], ids=["taps-make", "taps-bench", "resident", "streamed", "body2-make", "body2-bench",
-        "taps-main", "body-main", "body2-main", "ablate-main"])
+        "taps-main", "body-main", "body2-main", "ablate-main", "taps-plan", "body-plan",
+        "sync-main"])
 def test_cuda_without_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
