@@ -66,13 +66,16 @@ Phases; any failure exits non-zero before a result line is printed:
             reference's max (float32 1e-4, bf16 5e-3) where the output does
             not underflow; (iii) the checks that can fail, at T = 65, which
             reads every tap (P1 with a weight of larger gain), at B in {1, 3,
-            8, 9} (P3 at 8), where a kernel with layer 23 at half its
-            dilation (P1 static and compute: a zeroed w column), and P2 and P3
-            with each other's cond rule (also at T = 1000), must be rejected;
-            the plans of P1's cluster kernel and of body_mma (P2, P4) on the
-            card against their wrappers' own; tools/ablate_body once (P2's
-            split by variant); tools/bench_sync once (clusters at once and
-            us a cluster and a grid barrier);
+            8, 9}, where a kernel with layer 23 at half its dilation (P1
+            static and compute: a zeroed w column), and P2 and P3 with each
+            other's cond rule (also at T = 1000), must be rejected; the plans
+            of P1's cluster kernel, of body_mma (P2, P4) and of P3's two
+            kernels (a block of each on one SM) on the card against their
+            wrappers' own; P3 under the profiler (its kernels from the CUDA
+            graph, the idle share); tools/ablate_body once (P2's and P3's
+            split by variant); tools/bench_sync once (clusters at once, us a
+            cluster and a grid barrier, us a launch by stream, graph and
+            PDL);
   8. train  the VAE training path at the full VAEConfig (no hand kernel:
             cuDNN/cuBLAS, float32, TF32 off): Trainer.run_training at
             training.sh's batch 8 on a synthetic corpus made as in phase 3
@@ -481,32 +484,59 @@ def probe_bound(kind, w, B, T, stage=0, layers=24):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def probe_profile(pb, w, dil, B, card, steps=50):
-    """Where P3's time goes: device time of its two kernels (the phases
-    that P2 runs between grid barriers) and the device's idle share over one
-    streamed call of `steps` steps, by torch.profiler."""
+def busy_union(spans) -> float:
+    """The length of the union of (start, end) spans."""
+    total, cur = 0.0, None
+    for a, b in sorted(spans):
+        if cur is None or a > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (0.0 if cur is None else cur[1] - cur[0])
+
+
+def probe_profile(pb, w, dil, B, card, steps=100):
+    """Where P3's time goes: one streamed call of `steps` steps under
+    torch.profiler, its kernels from the CUDA graph (streamed_in and
+    streamed_out, 2L a step: the phases that P2 runs between grid
+    barriers) and the device's busy time as the union of every kernel's
+    span.  Under programmatic dependent launch a kernel's span starts when
+    its blocks do, in its predecessor's tail, so spans overlap and their
+    sum overstates the busy time.  The idle share is read over the call's
+    events (the graph's capture included) and over the kernels' window."""
     layers = len(dil)
-    want = {"body_in": layers * steps, "body_out": layers * steps}
+    want = {"streamed_in": layers * steps, "streamed_out": layers * steps}
     pb.streamed(w, B=B, T=steps, dil=dil)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, ms = events_ms(lambda: pb.streamed(w, B=B, T=steps, dil=dil))
-    by_kernel = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0.0)
+    spans, by_kernel = [], {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        if b <= a:
+            continue
+        spans.append((a, b))
         for part in want:
-            if dev_us > 0 and part in e.key:
+            if part in e.name:
                 n_, us_ = by_kernel.get(part, (0, 0.0))
-                by_kernel[part] = (n_ + e.count, us_ + dev_us)
+                by_kernel[part] = (n_ + 1, us_ + (b - a))
     if set(by_kernel) != set(want):
-        print(f"profile P3 [{card}]: the profiler recorded no device time (not measured)",
-              flush=True)
+        print(f"profile P3 [{card}]: the profiler recorded no device time of "
+              f"{sorted(set(want) - set(by_kernel))} (not measured)", flush=True)
         return
-    busy_us = sum(us for _, us in by_kernel.values())
-    parts = ", ".join(f"{k} {us / n:.2f} us x {n}/{want[k]}" for k, (n, us) in by_kernel.items())
-    print(f"profile P3 [{card}] B={B} T={steps}: {ms * 1e3 / steps:.1f} us/sample wall, device "
-          f"busy {busy_us / steps:.1f} us/step (idle share {1 - busy_us / (ms * 1e3):.3f}); "
-          f"{parts}", flush=True)
+    busy = busy_union(spans)
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    summed = sum(us for _, us in by_kernel.values())
+    parts = ", ".join(f"{k} span {us / n:.2f} us x {n}/{want[k]}"
+                      for k, (n, us) in by_kernel.items())
+    print(f"profile P3 [{card}] B={B} T={steps}: {ms * 1e3 / steps:.1f} us/sample by events "
+          f"(the graph's capture and instantiation {pb.streamed.graph_us:.0f} us of it), device "
+          f"busy {busy / steps:.1f} us/step by the union of kernel spans: idle share "
+          f"{1 - busy / (ms * 1e3):.3f} of the call, {1 - busy / window:.3f} of the kernels' "
+          f"window; kernel spans summed {summed / busy:.2f}x the union; {parts}", flush=True)
 
 
 def probes(card, dev):
@@ -530,6 +560,7 @@ def probes(card, dev):
     timed = {("taps", m): p1.bench(m, device=dev) for m in p1.MODES}
     timed[("resident", None)] = pb.bench("resident", pb.make_resident(device=dev), device=dev)
     timed[("streamed", None)] = pb.bench("streamed", pb.make_streamed(device=dev), device=dev)
+    p3_graph_us = pb.streamed.graph_us  # the timed call's graph, captured in each call
     timed.update({("body2", st): p4.bench(st, device=dev) for st in p4.STAGES})
     main_s = time.perf_counter() - t_main
     launches = {("taps", m): p1.taps.launches[m] for m in p1.MODES}
@@ -597,13 +628,17 @@ def probes(card, dev):
         report[(kind, key)] = {"ms": t["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
                                "bound_by": b_by, "max_abs_err": absd,
                                "rel_err": rel if alive else 0.0}  # decayed: not held here
+        if kind == "streamed":
+            report[(kind, key)]["graph_us"] = p3_graph_us
+            print(f"probe streamed [{card}]: the call's CUDA graph (a step, replayed {T} "
+                  f"times) takes {p3_graph_us:.0f} us to capture and instantiate, inside the "
+                  f"timed call; without it {t['ms'] - p3_graph_us / 1e3:.2f} ms", flush=True)
 
     probe_profile(pb, w_body, dil, B, card)
 
     # (iii) the checks that can fail, at SHORT_T, with corrupted variants, at
     # every batch size of PROBE_CHECK_BS: P1's clusters (one a row, 15 at
-    # once on an H100) and P2/P4's n-tiles of 8 rows change at those edges.
-    # P3, the first design's per-layer kernels, stays checked at B = 8.
+    # once on an H100) and P2-P4's n-tiles of 8 rows change at those edges.
     gen = np.random.RandomState(1)
     short_w = {g: torch.from_numpy((gen.randn(p1.R, p1.R) * g / math.sqrt(p1.R)).astype(
         np.float32)).to(dev) for g in (0.6, 0.3)}
@@ -615,7 +650,7 @@ def probes(card, dev):
         kern, plain, tol = runs(kind, key)
         name = f"{kind}[{key}]" if key is not None else kind
         r = report[(kind, key)]
-        for Bc in (B,) if kind == "streamed" else PROBE_CHECK_BS:
+        for Bc in PROBE_CHECK_BS:
             T = SHORT_T
             if kind == "taps":
                 # the probe's w underflows; gain 0.6 / sqrt(R) keeps h alive over
@@ -666,11 +701,12 @@ def probes(card, dev):
 
 
 def probe_plans(card, dev, p1, pb, dil):
-    """The new probe kernels' plans on the card, held to the plans their
+    """The probe kernels' plans on the card, held to the plans their
     wrappers compute on the host: P1's cluster (size, channels and shared
     memory a CTA, clusters at once), body_mma's tiles, resident layers and
     shared memory at each batch size of the checks, with and without the
-    head."""
+    head, and P3's two kernels' tiles, weight bytes and shared memory, with
+    a block of each fitting on one SM (registers too), and the L2."""
     mine = p1.cluster_plan(p1.R, p1.ring_slots(dil))
     got = p1.device_plan(p1.R, p1.ring_slots(dil), dev)
     print(f"probe plan P1 [{card}]: {json.dumps(got)}", flush=True)
@@ -687,11 +723,28 @@ def probe_plans(card, dev, p1, pb, dil):
             check(all(got[k] == mine[k] for k in got if k != "blocks_per_sm"),
                   f"body_mma's plan on the card {got} is not the host's {mine}")
             check(got["blocks_per_sm"] >= 1, "body_mma does not fit on an SM")
+    sp = pb.streamed_plan(8, pb.L, pb.R, pb.G, pb.S, pb.C)
+    step_mb = pb.L * (sp["in_ctas"] * sp["in_bytes"] + sp["ctas"] * sp["out_bytes"]) / 1e6
+    for b in PROBE_CHECK_BS:
+        mine = pb.streamed_plan(b, pb.L, pb.R, pb.G, pb.S, pb.C)
+        got = pb.streamed_device_plan(b, pb.L, pb.R, pb.G, pb.S, pb.C, device=dev)
+        print(f"probe plan P3 [{card}] B={b}: {json.dumps(got)}; a step's weights {step_mb:.2f} "
+              f"MB against the L2's {got['l2_bytes'] / 1e6:.2f} MB (largest persisting window "
+              f"{got['persisting_l2_bytes'] / 1e6:.2f} MB)", flush=True)
+        check(all(got[k] == mine[k] for k in ("ctas", "in_ctas", "threads", "rows_in",
+                                              "rows_out", "in_bytes", "out_bytes", "smem_in",
+                                              "smem_out")),
+              f"P3's plan on the card {got} is not the host's {mine}")
+        check((got["sm_smem"], got["reserved_smem"]) == (pb.SM_SMEM, pb.RESERVED_SMEM),
+              f"an SM's shared memory {got['sm_smem']} and reservation {got['reserved_smem']} "
+              f"are not the host plan's {pb.SM_SMEM} and {pb.RESERVED_SMEM}")
+        check(got["pair_fits"] == 1, f"a block of streamed_in and one of streamed_out do not "
+                                     f"fit on one SM at B = {b}: {got}")
 
 
 def probe_ablation(card, dev):
-    """tools/ablate_body once: P2's split by variant at B = 8, T = 200, and
-    the per-layer costs it implies."""
+    """tools/ablate_body once: P2's and P3's split by variant at B = 8, T =
+    200, and the per-layer costs it implies."""
     from dvc_tpu_torch.tools import ablate_body
     from dvc_tpu_torch.tools import bench_body as pb
 
@@ -704,9 +757,14 @@ def probe_ablation(card, dev):
              "weights": (base - us["no_weights"]["P2"]) / pb.L}
     print(f"probe ablation [{card}] P2 B={pb.B} T=200: base {base:.2f} us a step; us a layer: "
           + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-          + f" (a barrier: barriers only / {2 * pb.L}); P3 base {us['base']['P3']:.2f}, launches "
-          f"only {us['barriers']['P3']:.2f} us a step; {time.perf_counter() - t0:.1f} s",
+          + f" (a barrier: barriers only / {2 * pb.L}); {time.perf_counter() - t0:.1f} s",
           flush=True)
+    p3 = us["base"]["P3"]
+    split3 = {k: (p3 - us[v]["P3"]) / pb.L for k, v in (
+        ("in", "no_in"), ("out", "no_out"), ("staging", "no_stage"), ("weights", "no_weights"))}
+    print(f"probe ablation [{card}] P3 B={pb.B} T=200: base {p3:.2f} us a step, launches only "
+          f"{us['barriers']['P3']:.2f} ({us['barriers']['P3'] / (2 * pb.L):.2f} us a launch); us "
+          "a layer: " + ", ".join(f"{k} {v:.2f}" for k, v in split3.items()), flush=True)
 
 TERM_RTOL = 1e-5        # phase 8, card step against CPU step: the limits of
 GRAD_RTOL = 1e-3        # tests/test_torch_port_train.py (loss terms; each gradient
@@ -3269,8 +3327,8 @@ def main() -> int:
         probe_entry("probe_taps", "bench_taps.cu", "tools/bench_taps.py:66", "taps", "dynamic"),
         probe_entry("probe_resident", "probe_body.cu", "tools/bench_body.py:95", "resident",
                     None),
-        probe_entry("probe_streamed", "probe_body.cu", "tools/bench_body.py:165", "streamed",
-                    None),
+        {**probe_entry("probe_streamed", "probe_body.cu", "tools/bench_body.py:165", "streamed",
+                       None), "graph_us": pr[("streamed", None)]["graph_us"]},
         probe_entry("probe_body2", "probe_body.cu", "tools/bench_body2.py:123", "body2", 4),
     ]}
     print(json.dumps(report), flush=True)

@@ -7,8 +7,14 @@
 //            arrival count in device memory and acquire polls until it
 //            reaches n x blocks, by one thread a block, in a loop;
 //   grid     cooperative_groups' grid sync (cudaLaunchCooperativeKernel), in
-//            a loop.
-// One launch of `iters` barriers; the caller times it.  Each block asks for
+//            a loop;
+//   launch   a chain of empty dependent kernels (the price of a launch, which
+//            probe_body.cu's P3 pays 2L times a step against P2's grid
+//            barriers): launched one by one into a stream, with and without
+//            programmatic dependent launch, or replayed from a CUDA graph,
+//            with plain or programmatic edges.
+// One launch of `iters` barriers; the caller times it (the launch chain is
+// timed here, between two events, without the graph's instantiation).  Each block asks for
 // `smem` bytes of shared memory, so that a large value holds one block an SM
 // as the probe kernels do.  No TPU kernel is replaced: this is a measurement
 // of the card, not a port.  It is bound by latency, not by bytes or
@@ -50,6 +56,26 @@ __global__ void __launch_bounds__(kThreads) counter_loop(int iters, unsigned int
 __global__ void __launch_bounds__(kThreads) grid_loop(int iters) {
   cg::grid_group g = cg::this_grid();
   for (int i = 0; i < iters; ++i) g.sync();
+}
+
+// a link of a launch chain: lets the next kernel start and waits for the one
+// before (both no-ops without the programmatic launch attribute)
+__global__ void __launch_bounds__(kThreads) chain_link() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+int chain_launch(int blocks, bool pdl, cudaStream_t st) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, chain_link);
 }
 
 #define DVC_CHECK(expr)                    \
@@ -133,6 +159,57 @@ int dvc_sync_loop(int kind, int blocks, int cluster, int smem, int iters, void* 
     DVC_CHECK(cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args, smem, st));
   }
   return (int)cudaGetLastError();
+}
+
+// A chain of n launches of chain_link, `blocks` blocks each.  mode 0: into
+// `stream` one by one; 1: the same with programmatic dependent launch; 2: a
+// CUDA graph of the n launches (captured and instantiated first); 3: the
+// graph with programmatic edges.  One warm round, then `reps` rounds between
+// two events: *us is microseconds a launch.  Returns 0 or the first
+// cudaError_t.
+int dvc_sync_launch_chain(int mode, int blocks, int n, int reps, void* stream, double* us) {
+  if (mode < 0 || mode > 3 || blocks < 1 || n < 1 || reps < 1 || !us)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool pdl = mode & 1, graph = mode >= 2;
+  cudaStream_t cs = nullptr;
+  cudaGraph_t g = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  cudaEvent_t e0 = nullptr, e1 = nullptr;
+  int err = (int)cudaEventCreate(&e0);
+  if (!err) err = (int)cudaEventCreate(&e1);
+  if (!err && graph) {
+    err = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+    if (!err) err = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+    if (!err) {
+      for (int i = 0; i < n && !err; ++i) err = chain_launch(blocks, pdl && i > 0, cs);
+      const int end = (int)cudaStreamEndCapture(cs, &g);  // ends the capture on any error
+      if (!err) err = end;
+    }
+    if (!err) err = (int)cudaGraphInstantiate(&exec, g, 0);
+  }
+  auto one_round = [&]() -> int {
+    if (graph) return (int)cudaGraphLaunch(exec, st);
+    for (int i = 0; i < n; ++i) {
+      const int e = chain_launch(blocks, pdl && i > 0, st);
+      if (e) return e;
+    }
+    return 0;
+  };
+  if (!err) err = one_round();
+  if (!err) err = (int)cudaEventRecord(e0, st);
+  for (int r = 0; r < reps && !err; ++r) err = one_round();
+  if (!err) err = (int)cudaEventRecord(e1, st);
+  if (!err) err = (int)cudaEventSynchronize(e1);
+  float ms = 0.f;
+  if (!err) err = (int)cudaEventElapsedTime(&ms, e0, e1);
+  if (!err) *us = ms * 1e3 / ((double)n * reps);
+  if (exec) cudaGraphExecDestroy(exec);
+  if (g) cudaGraphDestroy(g);
+  if (cs) cudaStreamDestroy(cs);
+  if (e0) cudaEventDestroy(e0);
+  if (e1) cudaEventDestroy(e1);
+  return err ? err : (int)cudaGetLastError();
 }
 
 const char* dvc_sync_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -103,342 +103,66 @@
 // layer: phase `in` 2.0, `out` 1.1, a grid barrier 1.5, staging 1.8,
 // weights 0.5.
 //
-// P3 keeps the first design: body_in and body_out, two launches per layer
-// from a host loop in C, on the output-major pack (bench_body.pack): w_in
-// (L, G, KIp) rows [W0[:, j] | W1[:, j] | W2[:, j] | Wc[:, j] | 0], w_so
-// (L, S + R, G/2) rows [w_skip[:, s] ; w_out[:, r]].  A layer is two phases:
-//   in   per gate-column pair (j, j + G/2), one block: the block stages the
-//        inputs [x_{t-2d} | x_{t-d} | bf16(h) | bf16(cond)] of all B rows in
-//        shared memory and its threads split the two rows' dots; it writes
-//        the bf16-rounded gate value gated[b][j];
-//   out  per skip/out column, one warp: the dot with the staged gated, the
-//        skip update, and for an out column r the ring write of the layer
-//        input h[b][r] and h[b][r] = (res + h) * 0.7071 in place.
-// Each phase first issues the loads that need nothing staged (its weight
-// vectors and biases, the old h and skip of its outputs), then stages its
-// inputs with all of a lane's 16-byte loads in flight, then computes; each
-// batch row's epilogue runs on its own lane.  Against the first design's P2
-// (the same phases between grid barriers) it priced a launch against a grid
-// barrier.  The step-start cond of the "step" rule is a snapshot of h[:, :C]
-// that block 0 writes while the first layer reads h itself.
+// P3: streamed_in and streamed_out, a launch a phase, 2L launches a step.
+// Pricing a launch against P2's grid barrier is what P3 is for, so the
+// launches stay.  What held the first design (body_in/body_out from a host
+// loop in C, float32 FMAs on an output-major pack) back, same card: 292 us a
+// step at B = 8, T = 1000, of which its empty launches alone took 226 us
+// (4.7 us each, tools/ablate_body): the host's loop of 48,000 launches and
+// each kernel's drain before the next one could start.  What this design
+// does about it:
+//   * a CUDA graph in place of the host loop: a step's 2L launches and a
+//     one-thread node that advances the step counter are captured and
+//     instantiated once a call and replayed T times; a kernel reads its
+//     step from the counter after its wait, and the counter moves only in
+//     the node after the step's last kernel is done.  Graphs of 8 and 32
+//     steps were tried and ran slower, their empty launches too;
+//   * programmatic dependent launch (PDL) between consecutive kernels: each
+//     launch but a graph's first carries cudaLaunchAttributeProgrammatic-
+//     StreamSerialization, and each kernel lets its successor start at once
+//     (griddepcontrol.launch_dependents).  Before its griddepcontrol.wait a
+//     kernel touches only what nothing in the call writes: its mbarrier, the
+//     TMA bulk copy of its rows of the layer's weights into shared memory,
+//     the gate's biases, zeros in its staging; after the wait it reads h,
+//     hb, the ring, gated, skip, the cond snapshot and the step counter, all
+//     through L2.  Every kernel waits before it ends, so a kernel's end
+//     implies the end of every kernel before it;
+//   * the dots on the tensor cores (mma.sync) from a fragment-order pack
+//     (bench_body.streamed_pack): streamed_out on body_mma's 128 blocks and
+//     out-tiles (3,072 bytes of weights a block a layer), streamed_in on 32
+//     blocks of mma's whole m16 tile, 8 gate pairs a block (51,712 bytes),
+//     since every block of phase in stages all its inputs from L2 and that
+//     broadcast, more than the dots, sets the phase's time; h and skip live
+//     in device memory between launches;
+//   * co-residency: a block of each kernel fits on an SM beside the other
+//     (shared memory, 256 threads, at most 128 registers a thread by
+//     __launch_bounds__, both kernels asking for the largest shared-memory
+//     carveout so that an SM need not drain to change it), so that a
+//     kernel's prologue runs while the one before still works;
+//     dvc_probe_streamed_plan reads it on the card.
+// The weights cannot stay in shared memory across launches (2.05 MB a layer,
+// 49.15 MB a step): each step reads them again, 14.7 ms a call of 1000 steps
+// at the HBM rate if they come from device memory, less where the 50 MB L2
+// keeps them.  Where the time went at the end (tools/ablate_body, same
+// card, T = 200): 157 us a step; us a layer: its two launches alone 1.4,
+// phase `in` 1.5, `out` 1.3, staging 1.6, weights 0.8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <chrono>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 8;       // batch rows per pass through a weight row
-constexpr int kStage = 9;         // 16-byte loads in flight per lane while staging: a batch
-                                  // row of 276 chunks (R = 512, C = 80) in one round trip
-constexpr int kBlocksPerSm = 1;   // grid: one block an SM (132 on an H100)
 constexpr int kMaxLayers = 64;
 constexpr int kMaxSmem = 232448;  // H100: 227 KB of dynamic shared memory a block
 constexpr float kHalf = 0.7071f;  // the probes' literal, not sqrt(1/2)
 
 enum CondRule { kCondStep = 0, kCondLayer = 1, kCondInput = 2 };
-
-// P3: the per-layer kernels body_in and body_out
-struct Body {
-  int B, T, L, R, G, S, C, KIp;
-  int cond_rule;  // kCondStep or kCondLayer
-  int dil[kMaxLayers], offs[kMaxLayers];
-  const __nv_bfloat16* w_in;  // (L, G, KIp)
-  const __nv_bfloat16* w_so;  // (L, S + R, G/2)
-  const float* b;             // (L, G)
-  uint16_t* ring;             // (slots, B, R) bf16 bits, zeroed by the host
-  float* h;                   // (B, R)
-  float* skip;                // (B, S)
-  float* gated;               // (B, G/2), bf16-rounded
-  float* cond;                // (B, C): h[:, :C] at the step's start
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// round to nearest even, as jnp .astype(bfloat16) and torch .to(bfloat16)
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void unpack_bf16(const uint4& r, float* w) {
-  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // little endian: element 2i is the low half
-    w[2 * i] = __uint_as_float(u[i] << 16);
-    w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-// The 16-byte weight vector `first` of each of NR rows, loaded ahead (before
-// a phase stages its inputs) so that its latency overlaps the staging; zeros
-// past the row's end
-template <int NR>
-__device__ __forceinline__ void prefetch(const __nv_bfloat16* const (&w)[NR], int n, int first,
-                                         uint4 (&pre)[NR]) {
-#pragma unroll
-  for (int r = 0; r < NR; ++r)
-    pre[r] = first < n / 8 ? __ldg(reinterpret_cast<const uint4*>(w[r]) + first)
-                           : make_uint4(0u, 0u, 0u, 0u);
-}
-
-// acc[r][bb] += this thread's share of dot(w[r], xs[bb]) over the 8-element
-// vectors first, first + stride, ... of rows of n (a multiple of 8) bf16
-// weights; xs holds nb <= kRowTile rows of n floats.  The caller sums shares.
-// With use_pre, pre holds vector `first` of each row (see prefetch).
-template <int NR>
-__device__ __forceinline__ void dots(const __nv_bfloat16* const (&w)[NR], const float* xs, int n,
-                                     int nb, int first, int stride,
-                                     float (&acc)[NR][kRowTile], const uint4 (&pre)[NR],
-                                     bool use_pre) {
-  const int nv = n / 8;
-  for (int v = first; v < nv; v += stride) {
-    float wv[NR][8];
-#pragma unroll
-    for (int r = 0; r < NR; ++r)
-      unpack_bf16(use_pre && v == first ? pre[r]
-                                        : __ldg(reinterpret_cast<const uint4*>(w[r]) + v),
-                  wv[r]);
-#pragma unroll
-    for (int bb = 0; bb < kRowTile; ++bb) {
-      if (bb < nb) {
-        const float4* x4 = reinterpret_cast<const float4*>(xs + bb * n + v * 8);
-        const float4 lo = x4[0], hi = x4[1];  // 16-byte shared loads: fewer bank conflicts
-        const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-#pragma unroll
-          for (int r = 0; r < NR; ++r) acc[r][bb] = fmaf(wv[r][e], x[e], acc[r][bb]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float4 round4(uint4 v) {
-  return make_float4(round_bf16(__uint_as_float(v.x)), round_bf16(__uint_as_float(v.y)),
-                     round_bf16(__uint_as_float(v.z)), round_bf16(__uint_as_float(v.w)));
-}
-
-// xs (B, KIp) = [x_{t-2d} | x_{t-d} | bf16(h) | bf16(cond) | 0] as floats.
-// Warp w copies batch rows w, w + kWarps, ... in 16-byte chunks (8 bf16 of
-// the ring, 4 floats of h or cond), a lane's kStage loads all issued before
-// the first is stored: one round trip to L2 per kStage chunks instead of
-// one per element.
-__device__ void stage_in(const Body& p, const uint16_t* x2, const uint16_t* x1, const float* csrc,
-                         int cstride, float* xs) {
-  const int R = p.R, C = p.C, KIp = p.KIp;
-  const int r8 = R / 8, r4 = R / 4, nrow = 2 * r8 + r4 + C / 4;
-  const int lane = threadIdx.x & 31;
-  for (int b = threadIdx.x >> 5; b < p.B; b += kWarps) {
-    float* row = xs + (size_t)b * KIp;
-    const uint4* s2 = reinterpret_cast<const uint4*>(x2 + (size_t)b * R);
-    const uint4* s1 = reinterpret_cast<const uint4*>(x1 + (size_t)b * R);
-    const uint4* sh = reinterpret_cast<const uint4*>(p.h + (size_t)b * R);
-    const uint4* sc = reinterpret_cast<const uint4*>(csrc + (size_t)b * cstride);
-    for (int q0 = lane; q0 < nrow; q0 += 32 * kStage) {
-      uint4 v[kStage];
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int q = q0 + 32 * u;
-        if (q < nrow)
-          v[u] = __ldcg(q < r8               ? s2 + q
-                        : q < 2 * r8         ? s1 + (q - r8)
-                        : q < 2 * r8 + r4    ? sh + (q - 2 * r8)
-                                             : sc + (q - 2 * r8 - r4));
-      }
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int q = q0 + 32 * u;
-        if (q < 2 * r8) {  // x_{t-2d} at [0, R), x_{t-d} at [R, 2R)
-          float f[8];
-          unpack_bf16(v[u], f);
-          float4* d = reinterpret_cast<float4*>(row + q * 8);
-          d[0] = make_float4(f[0], f[1], f[2], f[3]);
-          d[1] = make_float4(f[4], f[5], f[6], f[7]);
-        } else if (q < nrow) {  // h at [2R, 3R), cond at [3R, 3R + C)
-          const int k = q < 2 * r8 + r4 ? 2 * R + (q - 2 * r8) * 4 : 3 * R + (q - 2 * r8 - r4) * 4;
-          *reinterpret_cast<float4*>(row + k) = round4(v[u]);
-        }
-      }
-    }
-    for (int k = 3 * R + C + lane; k < KIp; k += 32) row[k] = 0.f;
-  }
-}
-
-// dst[i] = src[i] for n floats (n % 4 == 0) in 16-byte chunks, kStage
-// loads in flight per thread
-__device__ void stage_f32(float* dst, const float* src, int n) {
-  const int n4 = n / 4;
-  for (int c0 = threadIdx.x; c0 < n4; c0 += kStage * blockDim.x) {
-    uint4 v[kStage];
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int c = c0 + u * blockDim.x;
-      if (c < n4) v[u] = __ldcg(reinterpret_cast<const uint4*>(src) + c);
-    }
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int c = c0 + u * blockDim.x;
-      if (c < n4) reinterpret_cast<uint4*>(dst)[c] = v[u];
-    }
-  }
-}
-
-__device__ __forceinline__ void slots_of(const Body& p, int t, int l, int* s2, int* s1) {
-  const int d = p.dil[l], wp = t % (2 * d);
-  *s2 = p.offs[l] + wp;
-  *s1 = p.offs[l] + (wp + d) % (2 * d);
-}
-
-// phase `in`: gated[b][j] for the gate pairs j = blockIdx.x, + gridDim.x, ...
-__device__ void phase_in(const Body& p, int t, int l, float* xs) {
-  __shared__ float part[kWarps][2][kRowTile];
-  const int B = p.B, R = p.R, C = p.C, KIp = p.KIp, G2 = p.G / 2;
-  const size_t hsz = (size_t)B * R;
-  int s2, s1;
-  slots_of(p, t, l, &s2, &s1);
-  const float* csrc = p.cond;  // the step-start snapshot
-  int cstride = C;
-  if (p.cond_rule == kCondLayer || l == 0) {
-    csrc = p.h;
-    cstride = R;
-  }
-  if (p.cond_rule == kCondStep && l == 0 && blockIdx.x == 0) {
-    for (int i = threadIdx.x; i < B * C; i += blockDim.x) {
-      const int b = i / C, c = i - b * C;
-      p.cond[i] = __ldcg(p.h + (size_t)b * R + c);
-    }
-  }
-  const __nv_bfloat16* base = p.w_in + (size_t)l * p.G * KIp;
-  // the weights and biases of this block's first two gate pairs (256 pairs
-  // on 132 blocks), loaded before the staging so that their latency overlaps it
-  uint4 pre0[2] = {}, pre1[2] = {};
-  float bias0[2] = {}, bias1[2] = {};
-  auto load_pair = [&](int j, uint4 (&pre)[2], float (&bias)[2]) {
-    if (j < G2) {
-      const __nv_bfloat16* const rows[2] = {base + (size_t)j * KIp, base + (size_t)(j + G2) * KIp};
-      prefetch<2>(rows, KIp, threadIdx.x, pre);
-      if (threadIdx.x < kRowTile) {
-        bias[0] = p.b[(size_t)l * p.G + j];
-        bias[1] = p.b[(size_t)l * p.G + j + G2];
-      }
-    }
-  };
-  load_pair(blockIdx.x, pre0, bias0);
-  load_pair(blockIdx.x + gridDim.x, pre1, bias1);
-  stage_in(p, p.ring + (size_t)s2 * hsz, p.ring + (size_t)s1 * hsz, csrc, cstride, xs);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = blockIdx.x, k = 0; j < G2; j += gridDim.x, ++k) {
-    const __nv_bfloat16* const rows[2] = {base + (size_t)j * KIp, base + (size_t)(j + G2) * KIp};
-    for (int b0 = 0; b0 < B; b0 += kRowTile) {
-      const int nb = min(kRowTile, B - b0);
-      float acc[2][kRowTile] = {};
-      if (k == 1)
-        dots<2>(rows, xs + (size_t)b0 * KIp, KIp, nb, threadIdx.x, blockDim.x, acc, pre1, true);
-      else
-        dots<2>(rows, xs + (size_t)b0 * KIp, KIp, nb, threadIdx.x, blockDim.x, acc, pre0, k == 0);
-#pragma unroll
-      for (int bb = 0; bb < kRowTile; ++bb) {
-        const float sa = warp_sum(acc[0][bb]);
-        const float sg = warp_sum(acc[1][bb]);
-        if (lane == 0) {
-          part[warp][0][bb] = sa;
-          part[warp][1][bb] = sg;
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x < nb) {
-        const int bb = threadIdx.x;
-        float pa = 0.f, pg = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          pa += part[w][0][bb];
-          pg += part[w][1][bb];
-        }
-        pa += k == 0 ? bias0[0] : k == 1 ? bias1[0] : p.b[(size_t)l * p.G + j];
-        pg += k == 0 ? bias0[1] : k == 1 ? bias1[1] : p.b[(size_t)l * p.G + j + G2];
-        p.gated[(size_t)(b0 + bb) * G2 + j] = round_bf16(tanhf(pa) * (1.f / (1.f + expf(-pg))));
-      }
-      __syncthreads();  // part is reused
-    }
-  }
-}
-
-// phase `out`: skip and out columns o, one warp each, over the grid's warps
-__device__ void phase_out(const Body& p, int t, int l, float* gs) {
-  const int B = p.B, R = p.R, S = p.S, G2 = p.G / 2;
-  const size_t hsz = (size_t)B * R;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = gridDim.x * kWarps;
-  const int o0 = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const __nv_bfloat16* base = p.w_so + (size_t)l * (S + R) * G2;
-  uint4 pre[1] = {};
-  float pre_old = 0.f;  // the first column's skip or h of batch row `lane`
-  if (o0 < S + R) {
-    const __nv_bfloat16* const rows[1] = {base + (size_t)o0 * G2};
-    prefetch<1>(rows, G2, lane, pre);
-    if (lane < min(kRowTile, B))
-      pre_old = o0 < S ? (l == 0 ? 0.f : __ldcg(p.skip + (size_t)lane * S + o0))
-                       : __ldcg(p.h + (size_t)lane * R + o0 - S);
-  }
-  stage_f32(gs, p.gated, B * G2);
-  __syncthreads();
-  int s2, s1;
-  slots_of(p, t, l, &s2, &s1);
-  uint16_t* ring_w = p.ring + (size_t)s2 * hsz;
-  for (int o = o0; o < S + R; o += nwarps) {
-    const __nv_bfloat16* const rows[1] = {base + (size_t)o * G2};
-    for (int b0 = 0; b0 < B; b0 += kRowTile) {
-      const int nb = min(kRowTile, B - b0);
-      float acc[1][kRowTile] = {};
-      dots<1>(rows, gs + (size_t)b0 * G2, G2, nb, lane, 32, acc, pre, o == o0);
-      float v = 0.f;  // lane bb keeps batch row bb's dot, so the rows' epilogues run in parallel
-#pragma unroll
-      for (int bb = 0; bb < kRowTile; ++bb) {
-        const float sum = warp_sum(acc[0][bb]);
-        if (lane == bb) v = sum;
-      }
-      if (lane < nb) {
-        const int b = b0 + lane;
-        const bool first = o == o0 && b0 == 0;
-        if (o < S) {
-          float* sp = p.skip + (size_t)b * S + o;
-          const float old = first ? pre_old : l == 0 ? 0.f : __ldcg(sp);
-          *sp = l == 0 ? v : old + v;
-        } else {
-          const int r = o - S;
-          const size_t e = (size_t)b * R + r;
-          const float hv = first ? pre_old : __ldcg(p.h + e);
-          ring_w[e] = __bfloat16_as_ushort(__float2bfloat16_rn(hv));
-          p.h[e] = (v + hv) * kHalf;
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) body_in(Body p, int t, int l) {
-  extern __shared__ float sm[];
-  phase_in(p, t, l, sm);
-}
-
-__global__ void __launch_bounds__(kThreads) body_out(Body p, int t, int l) {
-  extern __shared__ float sm[];
-  phase_out(p, t, l, sm);
-}
-
-__global__ void fill_kernel(float* x, size_t n, float v) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) x[i] = v;
-}
 
 
 // ---------------------------------------------------------------------------
@@ -450,14 +174,17 @@ constexpr int kMaxNt = 2;           // n-tiles of 8 batch rows: B <= 16
 constexpr int kMaxRows = 8;         // rows of a block's tile: the first half of mma's m16
 constexpr int kPad = 8;             // bf16 pad of a staged row: conflict-free B fragments
 constexpr int kOwnB = 16;           // batch stride of the owned state
+constexpr int kInRows = 16;         // rows of a tile of P3's streamed_in: mma's whole m16
 constexpr long long kSpinLimit = 1ll << 24;  // polls before a wait traps instead of hanging
 
-// tools/ablate_body edits these switches; the kernel is right only as they are
+// tools/ablate_body edits these switches; the kernels are right only as they are
+// (P3's kernels read kDoIn, kDoOut, kStageInputs, kLoadWeights and kLayerWork)
 constexpr bool kDoIn = true;         // phase in: the dots, the gate
 constexpr bool kDoOut = true;        // phase out: the dots, the epilogue
 constexpr bool kStageInputs = true;  // stage the taps, h and cond of phase in
 constexpr bool kLoadWeights = true;  // bulk-copy the weights and read their fragments
 constexpr bool kGridBarrier = true;  // false: block barriers in place of the grid's
+constexpr bool kLayerWork = true;    // false: P3's kernels only trigger their successor and wait
 
 struct Persist {
   int B, T, L, R, G2, S, C, KT, KH, KO, KF, nt;
@@ -482,14 +209,21 @@ struct Persist {
   float* h;              // (B, R): the final h
   float* skip;           // (B, S): the last step's skip sum
   float* out;            // (T, B) with row_out
+  // P3 (streamed_shape): streamed_in's blocks, mbarrier, bytes of a block's
+  // weights a layer and shared memory; the same of streamed_out (kCtas
+  // blocks); their weights (bench_body.streamed_pack): win (L, in blocks,
+  // i_wb) and wout (L, kCtas, u_wb) fragments; the step of the graph's replay
+  int i_ctas, i_mbar, i_wb, i_smem, u_mbar, u_wb, u_smem;
+  const uint8_t* win;
+  const uint8_t* wout;
+  int* tbase;
 };
 
 int align16(int n) { return (n + 15) & ~15; }
 
-// Fills p's tile shapes and shared-memory layout from B, L, R, G2, S, C and
-// head; 0, or cudaErrorInvalidValue for shapes the kernel does not take or a
-// plan that does not fit
-int persist_layout(Persist& p) {
+// Fills p's tile shapes from B, L, R, G2, S, C and head; 0, or
+// cudaErrorInvalidValue for shapes the tiles do not take
+int tile_shape(Persist& p) {
   if (p.B < 1 || p.B > 8 * kMaxNt || p.L < 2 || p.L > kMaxLayers || p.G2 % kCtas ||
       p.R % kCtas || p.S % kCtas || p.R % 16 || p.C % 8 || p.C > p.R || p.G2 % 16 || p.S % 16)
     return (int)cudaErrorInvalidValue;
@@ -507,6 +241,15 @@ int persist_layout(Persist& p) {
   p.nt = (p.B + 7) / 8;
   p.LB = ((p.KT + p.KH) * p.rin + p.KO * p.rout) * 32;
   p.F1B = p.head ? p.KF * p.rf1 * 32 : 0;
+  return 0;
+}
+
+// Fills p's tile shapes and body_mma's shared-memory layout; 0, or
+// cudaErrorInvalidValue for shapes the kernel does not take or a plan that
+// does not fit
+int persist_layout(Persist& p) {
+  const int err = tile_shape(p);
+  if (err) return err;
   const int rows = 8 * p.nt, xg_w = p.G2 > p.S ? p.G2 : p.S;
   int off = 0;
   p.o_red = off;
@@ -1007,6 +750,220 @@ __global__ void fill_u16(uint16_t* x, size_t n, uint16_t v) {
   if (i < n) x[i] = v;
 }
 
+__global__ void fill_f32(float* x, size_t n, float v) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = v;
+}
+
+
+// ---------------------------------------------------------------------------
+// P3: streamed_in and streamed_out, a launch a phase, chained by programmatic
+// dependent launch and replayed from a CUDA graph
+
+// Let the next kernel in the stream start its blocks now (they run up to
+// their own pdl_wait); wait until the kernel before has ended and its writes
+// are visible.  Both are no-ops for a launch without the PDL attribute.
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+// thread 0: arm this launch's mbarrier and bulk-copy the block's `bytes` of
+// a layer's fragments from src into w
+__device__ __forceinline__ void streamed_weights(const uint8_t* src, int bytes, uint8_t* w,
+                                                 uint64_t* mbar) {
+  if (!kLoadWeights || threadIdx.x != 0) return;
+  mbar_init(mbar);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  mbar_expect(mbar, bytes);
+  bulk_load(w, src, bytes, mbar);
+}
+
+// streamed_in's tiles use all 16 rows of mma's m16: 8 gate pairs' a-rows in
+// rows 0-7 and their g-rows in rows 8-15, so that a quarter of body_mma's
+// blocks (32 at G/2 = 256) compute phase in with the same k-steps a warp.
+// Every block stages all of phase in's inputs from L2, and that broadcast,
+// not the dots, set the phase's time: the same kernel launched on fewer
+// blocks (its outputs wrong, for timing only) ran faster at every halving
+// from 128 blocks of 4 rows to 16.
+
+// the A fragment of k-step k of a 16-row tile for lane (g, t): a0 and a2
+// from row g's 8 bytes, a1 and a3 from row g + 8's (layout as a_frag's)
+__device__ __forceinline__ uint4 a_frag16(const uint8_t* w, int k, int g, int t) {
+  if (!kLoadWeights) return make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u);
+  const uint2 lo = *reinterpret_cast<const uint2*>(w + ((size_t)k * kInRows + g) * 32 + t * 8);
+  const uint2 hi =
+      *reinterpret_cast<const uint2*>(w + ((size_t)k * kInRows + g + 8) * 32 + t * 8);
+  return make_uint4(lo.x, hi.x, lo.y, hi.y);
+}
+
+// d += A (16 x 16) x B (16 x 8), B's column g at x
+__device__ __forceinline__ void mma16_step(float (&d)[4], uint4 a, const uint16_t* x) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(*reinterpret_cast<const uint32_t*>(x)),
+        "r"(*reinterpret_cast<const uint32_t*>(x + 8)));
+}
+
+// tile_dots of a 16-row tile: acc[n] += this warp's k-steps k = warp, warp +
+// kWarps, ... < nk, two at a time into two accumulators
+__device__ __forceinline__ void tile_dots16(float (&acc)[kMaxNt][4], const uint8_t* w, int nk,
+                                            const uint16_t* xs, int xstride, int nt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  float odd[kMaxNt][4] = {};
+  int k = warp;
+  for (; k + kWarps < nk; k += 2 * kWarps) {
+    const uint4 a0 = a_frag16(w, k, g, t), a1 = a_frag16(w, k + kWarps, g, t);
+#pragma unroll
+    for (int n = 0; n < kMaxNt; ++n) {
+      if (n < nt) {
+        const uint16_t* x = xs + (size_t)(n * 8 + g) * xstride + 16 * k + 2 * t;
+        mma16_step(acc[n], a0, x);
+        mma16_step(odd[n], a1, x + 16 * kWarps);
+      }
+    }
+  }
+  if (k < nk) {
+    const uint4 a0 = a_frag16(w, k, g, t);
+#pragma unroll
+    for (int n = 0; n < kMaxNt; ++n)
+      if (n < nt) mma16_step(acc[n], a0, xs + (size_t)(n * 8 + g) * xstride + 16 * k + 2 * t);
+  }
+#pragma unroll
+  for (int n = 0; n < kMaxNt; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += odd[n][i];
+}
+
+// every warp's partial sums of its 16 rows into red (then a block barrier)
+__device__ __forceinline__ void to_red16(float* red, const float (&acc)[kMaxNt][4], int nt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < kMaxNt; ++n) {
+    if (n < nt) {
+      float* r = red + ((warp * kMaxNt + n) * kInRows + g) * 8 + 2 * t;
+      r[0] = acc[n][0];
+      r[1] = acc[n][1];
+      r[64] = acc[n][2];  // row g + 8
+      r[65] = acc[n][3];
+    }
+  }
+}
+
+// row r of a 16-row tile for batch row b: the warps' partial sums in warp order
+__device__ __forceinline__ float red_sum16(const float* red, int r, int b) {
+  float v = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) v += red[((w * kMaxNt + b / 8) * kInRows + r) * 8 + b % 8];
+  return v;
+}
+
+// P3's phase in of layer l at step *tbase: the gate of this block's 8 pairs
+// into gb
+__global__ void __launch_bounds__(kThreads, 2) streamed_in(Persist p, int l) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  pdl_trigger();
+  if (!kLayerWork) {
+    pdl_wait();
+    return;
+  }
+  float* red = reinterpret_cast<float*>(smem + p.o_red);
+  uint16_t* xt = reinterpret_cast<uint16_t*>(smem + p.o_xt);
+  uint16_t* xh = reinterpret_cast<uint16_t*>(smem + p.o_xh);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem + p.i_mbar);
+  uint8_t* w = smem + p.i_mbar + 16;
+  const int B = p.B, G2 = p.G2, tid = threadIdx.x;
+  const int xt_s = 2 * p.R + kPad, xh_s = 16 * p.KH + kPad;
+  // before the wait, only what nothing in the call writes: the weights'
+  // copy, the gate's biases, and zeros in xh (its columns past R + C meet
+  // zero weights, and must not hold a NaN)
+  streamed_weights(p.win + ((size_t)l * gridDim.x + blockIdx.x) * p.i_wb, p.i_wb, w, mbar);
+  for (int i = tid; i < p.nt * xh_s; i += kThreads)  // 8 nt rows of xh_s bf16
+    reinterpret_cast<uint4*>(xh)[i] = make_uint4(0u, 0u, 0u, 0u);
+  const bool gate_thread = tid < kInRows / 2 * B;
+  const int gp = gate_thread ? tid / B : 0, gb_row = gate_thread ? tid - gp * B : 0;
+  const int gj = blockIdx.x * (kInRows / 2) + gp;
+  const float bias_a = gate_thread ? __ldg(p.b + (size_t)l * 2 * G2 + gj) : 0.f;
+  const float bias_g = gate_thread ? __ldg(p.b + (size_t)l * 2 * G2 + G2 + gj) : 0.f;
+  __syncthreads();  // xh's zeros and the mbarrier's init before any use
+  pdl_wait();
+  const int t = __ldcg(p.tbase);
+  stage_taps(p, xt, t, l);  // cp.async: in flight while h and cond are staged
+  stage_h(p, xh, nullptr, t, l);
+  cp_wait_all();
+  __syncthreads();
+  if (kLoadWeights) mbar_wait(mbar, 0);  // also without the dots: no copy outlives the block
+  if (!kDoIn) return;
+  float acc[kMaxNt][4] = {};
+  tile_dots16(acc, w, p.KT, xt, xt_s, p.nt);
+  tile_dots16(acc, w + p.KT * kInRows * 32, p.KH, xh, xh_s, p.nt);
+  to_red16(red, acc, p.nt);
+  __syncthreads();
+  if (gate_thread) {
+    const float a = red_sum16(red, gp, gb_row) + bias_a;
+    const float g = red_sum16(red, kInRows / 2 + gp, gb_row) + bias_g;
+    p.gb[(size_t)gb_row * G2 + gj] = bf16_bits(tanhf(a) * (1.f / (1.f + expf(-g))));
+  }
+}
+
+// P3's phase out of layer l at step *tbase: this block's skip rows and
+// channels of h, as body_mma's phase out, with h and skip in device memory;
+// the ring slot x_{t-2d} of its channels takes the layer input h, and after
+// a step's last layer the cond snapshot (cond rule kCondStep) the new h
+__global__ void __launch_bounds__(kThreads, 2) streamed_out(Persist p, int l) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  pdl_trigger();
+  if (!kLayerWork) {
+    pdl_wait();
+    return;
+  }
+  float* red = reinterpret_cast<float*>(smem + p.o_red);
+  uint16_t* xg = reinterpret_cast<uint16_t*>(smem + p.o_xg);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem + p.u_mbar);
+  uint8_t* w = smem + p.u_mbar + 16;
+  const int B = p.B, R = p.R, S = p.S, blk = blockIdx.x, tid = threadIdx.x;
+  const int xg_s = (p.G2 > S ? p.G2 : S) + kPad;
+  streamed_weights(p.wout + ((size_t)l * kCtas + blockIdx.x) * p.u_wb, p.u_wb, w, mbar);
+  __syncthreads();  // the mbarrier's init before any wait on it
+  pdl_wait();
+  // an owner's old skip or h, loaded ahead of the staging
+  const bool owner = tid < p.rout * B;
+  const int rr = owner ? tid / B : 0, b = owner ? tid - rr * B : 0;
+  const bool is_skip = rr < p.rs;
+  const int r = blk * p.rh + rr - p.rs;
+  const size_t e = is_skip ? (size_t)b * S + blk * p.rs + rr : (size_t)b * R + r;
+  const float old = owner && (!is_skip || l > 0) ? __ldcg((is_skip ? p.skip : p.h) + e) : 0.f;
+  const int t = __ldcg(p.tbase);
+  stage_rows(p, xg, p.gb, p.G2);
+  __syncthreads();
+  if (kLoadWeights) mbar_wait(mbar, 0);
+  if (!kDoOut) return;
+  float acc[kMaxNt][4] = {};
+  tile_dots(acc, w, p.rout, p.KO, xg, xg_s, p.nt);
+  to_red(red, acc, p.nt);
+  __syncthreads();
+  if (!owner) return;
+  const float v = red_sum(red, rr, b);
+  if (is_skip) {
+    p.skip[e] = l == 0 ? v : old + v;
+    return;
+  }
+  int s2, s1;
+  slots_at(p, t, l, &s2, &s1);
+  p.ring[((size_t)s2 * B + b) * R + r] = bf16_bits(old);
+  const float nh = (v + old) * kHalf;
+  p.h[e] = nh;
+  p.hb[e] = bf16_bits(nh);
+  if (l == p.L - 1 && p.cond_rule == kCondStep && r < p.C)
+    p.condb[(size_t)b * p.C + r] = bf16_bits(nh);
+}
+
+// a graph's last node: its next replay is the next step
+__global__ void advance_step(int* tbase) { *tbase += 1; }
+
 #define DVC_CHECK(expr)                    \
   do {                                     \
     cudaError_t e_ = (expr);               \
@@ -1036,6 +993,88 @@ int persist_shape(Persist& p, int B, int L, int R, int G, int S, int C, int head
   p.head = head;
   p.cond_rule = cond_rule;
   return persist_layout(p);
+}
+
+// P3's shapes and layouts: streamed_in on G/2 / 8 blocks of 16-row tiles
+// (partial sums, taps, [h | cond], its mbarrier, its rows' weights),
+// streamed_out on body_mma's kCtas blocks and out-tiles (partial sums,
+// gated, its mbarrier, its rows' weights).  0, or cudaErrorInvalidValue.
+int streamed_shape(Persist& p, int B, int L, int R, int G, int S, int C, int cond_rule) {
+  if (G % 2 || cond_rule < 0 || cond_rule > 1) return (int)cudaErrorInvalidValue;
+  p.B = B;
+  p.L = L;
+  p.R = R;
+  p.G2 = G / 2;
+  p.S = S;
+  p.C = C;
+  p.head = 0;
+  p.cond_rule = cond_rule;
+  const int err = tile_shape(p);
+  if (err) return err;
+  const int rows = 8 * p.nt, xg_w = p.G2 > p.S ? p.G2 : p.S;
+  p.i_ctas = p.G2 / (kInRows / 2);
+  p.o_red = 0;
+  p.o_xt = align16(kWarps * kMaxNt * kInRows * 8 * 4);
+  p.o_xh = p.o_xt + align16(rows * (2 * p.R + kPad) * 2);
+  p.i_mbar = p.o_xh + align16(rows * (16 * p.KH + kPad) * 2);
+  p.i_wb = (p.KT + p.KH) * kInRows * 32;
+  p.i_smem = p.i_mbar + 16 + p.i_wb;
+  p.o_xg = align16(kWarps * kMaxNt * 64 * 4);
+  p.u_mbar = p.o_xg + align16(rows * (xg_w + kPad) * 2);
+  p.u_wb = p.KO * p.rout * 32;
+  p.u_smem = p.u_mbar + 16 + p.u_wb;
+  return p.i_smem > kMaxSmem || p.u_smem > kMaxSmem ? (int)cudaErrorInvalidValue : 0;
+}
+
+int streamed_attrs(const Persist& p) {
+  DVC_CHECK(cudaFuncSetAttribute(streamed_in, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 p.i_smem));
+  DVC_CHECK(cudaFuncSetAttribute(streamed_out, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 p.u_smem));
+  DVC_CHECK(cudaFuncSetAttribute(streamed_in, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared));
+  DVC_CHECK(cudaFuncSetAttribute(streamed_out, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared));
+  return 0;
+}
+
+// one launch of a P3 kernel into st; with pdl its blocks may start while the
+// kernel before it in st still runs
+int launch_phase(void (*kernel)(Persist, int), const Persist& p, int blocks, int smem, int l,
+                 bool pdl, cudaStream_t st) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, p, l);
+}
+
+// a step of P3 (each launch after the graph's first with a programmatic
+// edge to the one before) and the counter's advance, captured on cs into a
+// graph and instantiated into *exec
+int capture_step(const Persist& p, cudaStream_t cs, cudaGraphExec_t* exec) {
+  int err = (int)cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal);
+  if (err) return err;
+  for (int l = 0; l < p.L && !err; ++l) {
+    err = launch_phase(streamed_in, p, p.i_ctas, p.i_smem, l, l > 0, cs);
+    if (!err) err = launch_phase(streamed_out, p, kCtas, p.u_smem, l, true, cs);
+  }
+  if (!err) {
+    advance_step<<<1, 1, 0, cs>>>(p.tbase);
+    err = (int)cudaGetLastError();
+  }
+  cudaGraph_t graph = nullptr;
+  const int end = (int)cudaStreamEndCapture(cs, &graph);  // ends the capture on any error
+  if (!err) err = end;
+  if (!err) err = (int)cudaGraphInstantiate(exec, graph, 0);
+  if (graph) cudaGraphDestroy(graph);
+  return err;
 }
 
 }  // namespace
@@ -1130,71 +1169,110 @@ int dvc_probe_body_persistent(int cond_rule, int bias, int scaled_skip, int row_
   return (int)cudaGetLastError();
 }
 
-// P3: two launches per layer (body_in, body_out) from a host loop.
-// cond_rule 0: bf16(h[:, :C]) at the step's start; 1: at every layer.  dil:
-// host array of L dilations; slots >= sum 2d.  Device pointers: w_in (L, G,
-// KIp) and w_so (L, S + R, G/2) bf16 (bench_body.pack), b (L, G) float32;
-// ring (slots, B, R) bf16; h (B, R) (the output), skip (B, S), gated (B,
-// G/2) and cond (B, C) float32.  Returns 0 or the first cudaError_t.
-int dvc_probe_body_streamed(int cond_rule, int B, int T, int L, int R, int G, int S, int C,
-                            int KIp, const int* dil, int slots, const void* w_in,
-                            const void* w_so, const void* b, void* ring, void* h, void* skip,
-                            void* gated, void* cond, void* stream) {
-  const int G2 = G / 2;
-  if (B <= 0 || T < 0 || L <= 0 || L > kMaxLayers || R <= 0 || G <= 0 || G % 2 || S <= 0 ||
-      C < 0 || C > R || R % 8 || C % 4 || KIp % 8 || KIp < 3 * R + C || G2 % 8 || S % 8 ||
-      cond_rule < 0 || cond_rule > 1 || !b)
-    return (int)cudaErrorInvalidValue;
-  Body p{};
-  p.B = B;
-  p.T = T;
-  p.L = L;
-  p.R = R;
-  p.G = G;
-  p.S = S;
-  p.C = C;
-  p.KIp = KIp;
-  p.cond_rule = cond_rule;
-  const int err = set_dil(dil, L, slots, p.dil, p.offs);
+// The plan of P3's kernels at these shapes: plan[0..17] = blocks of
+// streamed_out and of streamed_in, threads a block, rows of a block's in and
+// out tiles, bytes of a block's in- and out-weights a layer, shared memory of streamed_in and streamed_out, their
+// registers a thread, the card's blocks an SM for each, whether a block of
+// each fits on an SM beside the other (1 or 0: shared memory with the
+// per-block reservation, threads, registers), the SM's shared memory, the
+// per-block reservation, the L2's bytes and the largest persisting L2 size.
+// Returns 0, cudaErrorInvalidValue for shapes the kernels do not take, or
+// the first cudaError_t.
+int dvc_probe_streamed_plan(int B, int L, int R, int G, int S, int C, int cond_rule, int* plan) {
+  Persist p{};
+  int err = streamed_shape(p, B, L, R, G, S, C, cond_rule);
+  if (!err) err = streamed_attrs(p);
   if (err) return err;
-  p.w_in = static_cast<const __nv_bfloat16*>(w_in);
-  p.w_so = static_cast<const __nv_bfloat16*>(w_so);
-  p.b = static_cast<const float*>(b);
-  p.ring = static_cast<uint16_t*>(ring);
-  p.h = static_cast<float*>(h);
-  p.skip = static_cast<float*>(skip);
-  p.gated = static_cast<float*>(gated);
-  p.cond = static_cast<float*>(cond);
-
-  const size_t smem_in = (size_t)B * KIp * sizeof(float);
-  const size_t smem_out = (size_t)B * G2 * sizeof(float);
-  if (smem_in > (size_t)kMaxSmem || smem_out > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const size_t hsz = (size_t)B * R;
-  DVC_CHECK(cudaMemsetAsync(ring, 0, (size_t)slots * hsz * sizeof(uint16_t), st));
-  fill_kernel<<<(unsigned)((hsz + 255) / 256), 256, 0, st>>>(p.h, hsz, 1.f);  // h at t = 0
-  DVC_CHECK(cudaGetLastError());
-
-  int dev = 0, sms = 0;
+  cudaFuncAttributes fin, fout;
+  DVC_CHECK(cudaFuncGetAttributes(&fin, streamed_in));
+  DVC_CHECK(cudaFuncGetAttributes(&fout, streamed_out));
+  int dev = 0, per_in = 0, per_out = 0, sm_smem = 0, reserved = 0, sm_threads = 0, sm_regs = 0,
+      l2 = 0, persisting = 0;
   DVC_CHECK(cudaGetDevice(&dev));
-  DVC_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  const int nblk = sms * kBlocksPerSm < G2 ? sms * kBlocksPerSm : G2;
-  DVC_CHECK(cudaFuncSetAttribute(body_in, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem_in));
-  DVC_CHECK(cudaFuncSetAttribute(body_out, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem_out));
-  for (int t = 0; t < T; ++t) {
-    for (int l = 0; l < L; ++l) {
-      body_in<<<nblk, kThreads, smem_in, st>>>(p, t, l);
-      DVC_CHECK(cudaGetLastError());
-      body_out<<<nblk, kThreads, smem_out, st>>>(p, t, l);
-      DVC_CHECK(cudaGetLastError());
-    }
-  }
+  DVC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_in, streamed_in, kThreads,
+                                                          p.i_smem));
+  DVC_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_out, streamed_out, kThreads,
+                                                          p.u_smem));
+  DVC_CHECK(cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
+  DVC_CHECK(cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev));
+  DVC_CHECK(cudaDeviceGetAttribute(&sm_threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev));
+  DVC_CHECK(cudaDeviceGetAttribute(&sm_regs, cudaDevAttrMaxRegistersPerMultiprocessor, dev));
+  DVC_CHECK(cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev));
+  DVC_CHECK(cudaDeviceGetAttribute(&persisting, cudaDevAttrMaxPersistingL2CacheSize, dev));
+  // a warp's registers are given in units of 256
+  auto block_regs = [](int regs) { return kWarps * ((regs * 32 + 255) / 256 * 256); };
+  const int fits = p.i_smem + p.u_smem + 2 * reserved <= sm_smem && 2 * kThreads <= sm_threads &&
+                   block_regs(fin.numRegs) + block_regs(fout.numRegs) <= sm_regs;
+  const int vals[18] = {kCtas,       p.i_ctas,     kThreads, kInRows, p.rout,
+                        p.i_wb,      p.u_wb,       p.i_smem, p.u_smem,
+                        fin.numRegs, fout.numRegs, per_in,   per_out, fits,
+                        sm_smem,     reserved,     l2,       persisting};
+  for (int i = 0; i < 18; ++i) plan[i] = vals[i];
   return 0;
 }
 
+// P3: T steps of 2L launches (streamed_in, streamed_out a layer), chained by
+// programmatic dependent launch, as a CUDA graph of a step replayed T times
+// on `stream`.  cond_rule 0: bf16(h[:, :C]) at the step's start; 1: at every
+// layer.  dil: host array of L dilations; slots >= sum 2d.  Device
+// pointers: win (L, G/2 / 8, in bytes) and wout (L, blocks, out bytes) bf16
+// fragments (bench_body.streamed_pack) and b (L, G) float32; scratch ring (slots, B, R),
+// hb (B, R), condb (B, C) and gb (B, G/2) bf16 and tbase one int32; outputs
+// h (B, R) and skip (B, S) float32.  *graph_us: host microseconds spent
+// capturing and instantiating the graph, a part of the call.  Returns 0 or
+// the first cudaError_t.
+int dvc_probe_body_streamed(int cond_rule, int B, int T, int L, int R, int G, int S, int C,
+                            const int* dil, int slots, const void* win, const void* wout,
+                            const void* b, void* ring, void* hb, void* condb, void* gb,
+                            void* tbase, void* h, void* skip, void* stream, double* graph_us) {
+  Persist p{};
+  int err = streamed_shape(p, B, L, R, G, S, C, cond_rule);
+  if (err) return err;
+  if (T < 0 || !win || !wout || !b || !graph_us) return (int)cudaErrorInvalidValue;
+  err = set_dil(dil, L, slots, p.dil, p.offs);
+  if (!err) err = streamed_attrs(p);
+  if (err) return err;
+  p.T = T;
+  p.win = static_cast<const uint8_t*>(win);
+  p.wout = static_cast<const uint8_t*>(wout);
+  p.b = static_cast<const float*>(b);
+  p.ring = static_cast<uint16_t*>(ring);
+  p.hb = static_cast<uint16_t*>(hb);
+  p.condb = static_cast<uint16_t*>(condb);
+  p.gb = static_cast<uint16_t*>(gb);
+  p.tbase = static_cast<int*>(tbase);
+  p.h = static_cast<float*>(h);
+  p.skip = static_cast<float*>(skip);
+
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t hsz = (size_t)B * R, csz = (size_t)B * C;
+  DVC_CHECK(cudaMemsetAsync(ring, 0, (size_t)slots * hsz * 2, st));
+  DVC_CHECK(cudaMemsetAsync(skip, 0, (size_t)B * S * 4, st));
+  DVC_CHECK(cudaMemsetAsync(tbase, 0, sizeof(int), st));
+  // the probes' h at t = 0: ones, in float32 and as bf16 (h and the snapshot)
+  fill_f32<<<(unsigned)((hsz + 255) / 256), 256, 0, st>>>(p.h, hsz, 1.f);
+  DVC_CHECK(cudaGetLastError());
+  fill_u16<<<(unsigned)((hsz + 255) / 256), 256, 0, st>>>(p.hb, hsz, 0x3f80);
+  DVC_CHECK(cudaGetLastError());
+  if (csz) {
+    fill_u16<<<(unsigned)((csz + 255) / 256), 256, 0, st>>>(p.condb, csz, 0x3f80);
+    DVC_CHECK(cudaGetLastError());
+  }
+  *graph_us = 0.0;
+  if (T == 0) return 0;
+
+  cudaStream_t cs = nullptr;  // capture only: nothing runs on it
+  cudaGraphExec_t step = nullptr;
+  const auto t0 = std::chrono::steady_clock::now();
+  err = (int)cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  if (!err) err = capture_step(p, cs, &step);
+  *graph_us = std::chrono::duration<double, std::micro>(std::chrono::steady_clock::now() - t0)
+                  .count();
+  for (int t = 0; t < T && !err; ++t) err = (int)cudaGraphLaunch(step, st);
+  if (step) cudaGraphExecDestroy(step);  // in flight, it is freed when its launches are done
+  if (cs) cudaStreamDestroy(cs);
+  return err ? err : (int)cudaGetLastError();
+}
 const char* dvc_probe_body_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

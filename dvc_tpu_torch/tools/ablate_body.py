@@ -1,16 +1,18 @@
-"""Where a layer's time goes in P2 (csrc/probe_body.cu's body_mma).  Each
-variant removes one part of the kernel by an edit of its source, and is
-timed as P2 (one persistent launch, two grid barriers a layer) at the
-probes' widths and weights, B = 8, over T steps; the base kernel and the
-barriers-only variant are also timed as P3 (two launches a layer, the
-per-layer kernels of the first design), for the price of a launch.  A
-variant's output is wrong by design: only its time is read.
+"""Where a layer's time goes in P2 (csrc/probe_body.cu's body_mma) and P3
+(its streamed_in and streamed_out).  Each variant removes one part of the
+kernels by an edit of their source, and is timed as P2 (one persistent
+launch, two grid barriers a layer) and, but for no_barrier, as P3 (two
+launches a layer, chained by programmatic dependent launch and replayed
+from a CUDA graph) at the probes' widths and weights, B = 8, over T steps.
+A variant's output is wrong by design: only its time is read.
 
-  base        the kernel as it is
+  base        the kernels as they are
   barriers    no phase work: P2 runs only its grid barriers (and its weight
-              and taps copies), P3 only its empty launches
-  no_in       P2 without phase `in`'s dots and gate (its barrier stays)
-  no_out      P2 without phase `out`'s dots and epilogue (its barrier stays)
+              and taps copies), P3 only its empty launches, each still
+              letting its successor start and waiting for the one before,
+              from the same graph
+  no_in       without phase `in`'s dots and gate (P2's barrier stays)
+  no_out      without phase `out`'s dots and epilogue (P2's barrier stays)
   no_stage    phase `in` stages no inputs (no taps, no h, no cond); the
               weights are still read
   no_weights  no weight copies, a constant in place of each fragment
@@ -47,12 +49,11 @@ def _off(flag: str) -> tuple[str, str]:
 # name -> (the (old, new) edits of the source, whether P3 is timed)
 VARIANTS: dict[str, tuple[tuple[tuple[str, str], ...], bool]] = {
     "base": ((), True),
-    "barriers": ((_off("kDoIn"), _off("kDoOut"), ("  phase_in(p, t, l, sm);\n}", "}"),
-                  ("  phase_out(p, t, l, sm);\n}", "}")), True),
-    "no_in": ((_off("kDoIn"),), False),
-    "no_out": ((_off("kDoOut"),), False),
-    "no_stage": ((_off("kStageInputs"),), False),
-    "no_weights": ((_off("kLoadWeights"),), False),
+    "barriers": ((_off("kDoIn"), _off("kDoOut"), _off("kLayerWork")), True),
+    "no_in": ((_off("kDoIn"),), True),
+    "no_out": ((_off("kDoOut"),), True),
+    "no_stage": ((_off("kStageInputs"),), True),
+    "no_weights": ((_off("kLoadWeights"),), True),
     "no_barrier": ((_off("kGridBarrier"),), False),
 }
 
@@ -82,8 +83,9 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def ablate(*, T: int = 200, device: str | torch.device = "cuda") -> dict[str, dict[str, float]]:
-    """µs per sample step of each variant as P2 and, where timed, P3; best
-    of 3 after one warm call, timed by CUDA events."""
+    """µs per sample step of each variant as P2 and, where timed, P3 (its
+    graph's capture included, as in every P3 call); best of 3 after one
+    warm call, timed by CUDA events."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the ablation times kernels: it needs a CUDA device")

@@ -1,5 +1,5 @@
-"""The price of Hopper's exchange primitives on the card, which the probe
-kernels' designs choose between (csrc/bench_sync.cu):
+"""The price of Hopper's exchange primitives and of a kernel launch on the
+card, which the probe kernels' designs choose between (csrc/bench_sync.cu):
 
   occupancy  cudaOccupancyMaxActiveClusters for clusters of 2-16 CTAs of
              BIG_SMEM bytes each (one CTA an SM, as the probe kernels run);
@@ -7,7 +7,13 @@ kernels' designs choose between (csrc/bench_sync.cu):
              clusters, fewer than run at once at 16);
   counter    us per grid barrier of body_mma's kind (a release/acquire
              arrival count) over BLOCKS blocks;
-  grid       us per cooperative_groups grid sync over BLOCKS blocks.
+  grid       us per cooperative_groups grid sync over BLOCKS blocks;
+  launch     us a launch of a chain of CHAIN empty dependent kernels of
+             128 and 132 blocks (LAUNCH_BLOCKS), four ways (LAUNCH_MODES):
+             one by one into a stream, the same with programmatic dependent
+             launch (PDL), a CUDA graph of the chain, and the graph with
+             programmatic edges (P3's way, csrc/probe_body.cu); the graph is
+             instantiated before the timing.
 
     python -m dvc_tpu_torch.tools.bench_sync
 
@@ -30,6 +36,9 @@ CLUSTERS_AT_ONCE = 4
 BIG_SMEM = 140_000
 BLOCKS = 128
 KINDS = ("cluster", "counter", "grid")  # in the order of the kernel's codes 0, 1, 2
+LAUNCH_MODES = ("stream", "stream_pdl", "graph", "graph_pdl")  # codes 0-3
+LAUNCH_BLOCKS = (128, 132)  # the probe kernels' grid, and one block an SM of an H100
+CHAIN = 960  # launches a chain: 20 of P3's steps of 48
 
 
 def _lib() -> ctypes.CDLL:
@@ -40,6 +49,8 @@ def _lib() -> ctypes.CDLL:
         lib.dvc_sync_cluster_occupancy.restype = i32
         lib.dvc_sync_loop.argtypes = [i32] * 5 + [vp, vp]
         lib.dvc_sync_loop.restype = i32
+        lib.dvc_sync_launch_chain.argtypes = [i32] * 4 + [vp, vp]
+        lib.dvc_sync_launch_chain.restype = i32
         lib.dvc_sync_error_string.argtypes = [i32]
         lib.dvc_sync_error_string.restype = ctypes.c_char_p
         lib._dvc_typed = True
@@ -77,6 +88,20 @@ def per_barrier_us(kind: str, device: torch.device, *, blocks: int, cluster: int
     return start.elapsed_time(end) * 1e3 / iters
 
 
+def per_launch_us(mode: str, device: torch.device, *, blocks: int, n: int = CHAIN,
+                  reps: int = 5) -> float:
+    """us a launch of a chain of ``n`` empty dependent kernels launched the
+    ``mode`` way, timed by the library between two CUDA events over
+    ``reps`` rounds after a warm one."""
+    lib, us = _lib(), ctypes.c_double(0.0)
+    with torch.cuda.device(device):
+        err = lib.dvc_sync_launch_chain(LAUNCH_MODES.index(mode), blocks, n, reps,
+                                        torch.cuda.current_stream(device).cuda_stream,
+                                        ctypes.addressof(us))
+    _common.check(lib, err, f"{mode} launch chain", "dvc_sync_error_string")
+    return us.value
+
+
 def measure(device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
@@ -85,7 +110,9 @@ def measure(device: str | torch.device = "cuda") -> dict:
             "cluster_us": {c: per_barrier_us("cluster", dev, blocks=c * CLUSTERS_AT_ONCE,
                                              cluster=c) for c in CLUSTERS},
             "counter_us": per_barrier_us("counter", dev, blocks=BLOCKS),
-            "grid_us": per_barrier_us("grid", dev, blocks=BLOCKS)}
+            "grid_us": per_barrier_us("grid", dev, blocks=BLOCKS),
+            "launch_us": {m: {b: per_launch_us(m, dev, blocks=b) for b in LAUNCH_BLOCKS}
+                          for m in LAUNCH_MODES}}
 
 
 def report(m: dict) -> str:
@@ -94,7 +121,10 @@ def report(m: dict) -> str:
             + "; us a cluster barrier: "
             + ", ".join(f"{c}: {us:.3f}" for c, us in m["cluster_us"].items())
             + f"; us a grid barrier over {BLOCKS} blocks: counter {m['counter_us']:.3f}, "
-            f"cooperative_groups {m['grid_us']:.3f}")
+            f"cooperative_groups {m['grid_us']:.3f}; us a launch of {CHAIN} empty dependent "
+            f"kernels of " + "/".join(map(str, LAUNCH_BLOCKS)) + " blocks: "
+            + ", ".join(f"{mode} " + "/".join(f"{us:.3f}" for us in by_b.values())
+                        for mode, by_b in m["launch_us"].items()))
 
 
 def main(argv=None) -> None:

@@ -6,9 +6,12 @@ S=32, C=16, B=2, T=20; BUF stays 504 >= sum 2d).  Errors are max |port -
 jax| over max |jax|: float32 (P1) 1e-5, the bf16 paths 2e-2.
 
 What the kernels' host side plans, which the CPU can hold: P1's cluster
-plan and body_mma's (P2, P4) tile and shared-memory plan, their constants
-against the .cu sources, and body_mma's fragment pack, unpacked bit for bit
-and multiplied out lane by lane as mma.m16n8k16 reads it."""
+plan, body_mma's (P2, P4) tile and shared-memory plan and P3's (two
+kernels, a block of each on one SM), their constants against the .cu
+sources, P3's launch chain in the source (programmatic dependent launch
+from a CUDA graph, nothing written in the call read before the wait), and
+the fragment pack that body_mma and P3 read, unpacked bit for bit and
+multiplied out lane by lane as mma.m16n8k16 reads it."""
 
 import importlib.util
 import re
@@ -191,30 +194,26 @@ FRAG = dict(R=128, G=256, S=128, C=16)
 
 
 def test_pack_layout():
-    """P3's output-major pack holds the probe's columns; body_mma's
-    fragment pack, where body_mma takes the widths, unpacks to the weights
-    bit for bit (at the probes' narrow test widths it is not made)."""
+    """The kernels' pack: the bias as (L, G) and, where the kernels' tiles
+    take the widths, body_mma's fragment pack (P2, P4), which unpacks to
+    the weights bit for bit, and P3's (test_streamed_pack_multiplies_out),
+    under names that leave the weights beside them alone (at the probes'
+    narrow test widths no fragments are made: the plain twins run there)."""
     frag_w = bench_body.weights(**FRAG, layers=3)
-    frag = bench_body.pack(frag_w)["w_frag"]
+    p = bench_body.pack(frag_w)
+    frag = p["w_frag"]
     plan = bench_body.body_plan(8, 3, 128, 256, 128, 16)
     assert frag.dtype == torch.bfloat16
     assert frag.shape == (3, bench_body.CTAS, plan["layer_bytes"] // 2)
     back = bench_body.frag_unpack(frag, 128, 256, 128, 16)
     for k, v in back.items():
         assert torch.equal(v.view(torch.int16), frag_w[k].view(torch.int16)), k
+    assert not set(p) & set(frag_w)  # prepare() puts the pack beside the weights
+    assert set(p) == {"b_in", "w_frag", "streamed_in", "streamed_out"}
+    assert p["b_in"].dtype == torch.float32 and p["b_in"].shape == (3, FRAG["G"])
+    assert torch.equal(p["b_in"], frag_w["b"].reshape(3, FRAG["G"]))
     w = _port_weights()
-    assert "w_frag" not in bench_body.pack(w)
-    p = bench_body.pack(w)
-    R, C, S, G2 = NARROW["R"], NARROW["C"], NARROW["S"], NARROW["G"] // 2
-    L, G = NARROW["L"], NARROW["G"]
-    assert p["w_in"].shape == (L, G, 3 * R + C + (-(3 * R + C) % 8))
-    j = 5
-    want = torch.cat([w["w_dil"][2, 0, :, j], w["w_dil"][2, 1, :, j], w["w_dil"][2, 2, :, j],
-                      w["w_c"][2, :, j]])
-    assert torch.equal(p["w_in"][2, j, :3 * R + C], want)
-    assert torch.equal(p["w_so"][1, 3], w["w_skip"][1, :, 3])
-    assert torch.equal(p["w_so"][1, S + 7], w["w_out"][1, :, 7])
-    assert p["w_so"].shape == (L, S + R, G2)
+    assert set(bench_body.pack(w)) == {"b_in"}
 
 
 def _mma_rows(frag: torch.Tensor, rows: int, k: int, x: torch.Tensor) -> torch.Tensor:
@@ -339,6 +338,155 @@ def test_body_mma_runs_on_the_tensor_cores_with_bulk_copies():
     assert re.findall(r"cudaLaunchCooperativeKernel\(\(const void\*\)(\w+)", src) == ["body_mma"]
 
 
+@pytest.mark.parametrize("B,nt,smem_in,smem_out", [
+    (1, 1, 86032, 11408), (8, 1, 86032, 11408), (9, 2, 112144, 15632), (16, 2, 112144, 15632),
+], ids=["B1", "B8", "B9", "B16"])
+def test_streamed_plan_at_the_probes_widths(B, nt, smem_in, smem_out):
+    """P3's plan at R = G = 512, S = 256, C = 80, 24 layers, 256 threads a
+    block: streamed_in on 32 blocks of 16 rows (8 gate pairs), 51,712
+    bytes of a layer's fragments a block beside partial sums of 16 rows,
+    the taps and [h | cond] of nt n-tiles of 8 rows and an mbarrier;
+    streamed_out on body_mma's 128 blocks of 6 rows, 3,072 bytes beside
+    partial sums, gated and an mbarrier; a block of each fits on one SM
+    with its reservation."""
+    plan = bench_body.streamed_plan(B, 24, 512, 512, 256, 80)
+    assert (plan["ctas"], plan["in_ctas"], plan["threads"]) == (128, 32, 256)
+    assert (plan["rows_in"], plan["rows_out"]) == (16, 6)
+    assert (plan["in_bytes"], plan["out_bytes"]) == (16 * (64 + 37) * 32, 3072)
+    red16, red = 8 * bench_body.MAX_NT * 16 * 8 * 4, 8 * bench_body.MAX_NT * 64 * 4
+    assert smem_in == (red16 + 8 * nt * (2 * 512 + 8) * 2 + 8 * nt * (16 * 37 + 8) * 2 + 16
+                       + plan["in_bytes"])
+    assert smem_out == red + 8 * nt * (256 + 8) * 2 + 16 + 3072
+    assert (plan["smem_in"], plan["smem_out"]) == (smem_in, smem_out)
+    assert plan["pair_smem"] == smem_in + smem_out + 2 * bench_body.RESERVED_SMEM
+    assert plan["pair_smem"] <= bench_body.SM_SMEM
+
+
+@pytest.mark.parametrize("kw,why", [
+    (dict(B=17), "B = 17"),
+    (dict(cond_rule="input"), "cond rule 'input'"),
+    (dict(g=384), "split over 128 blocks"),
+    (dict(g=4096), "rows a block"),
+], ids=["B", "input-rule", "G", "rows"])
+def test_streamed_plan_refuses(kw, why):
+    args = dict(B=8, layers=24, r=512, g=512, s=256, c=80)
+    args.update(kw)
+    with pytest.raises(ValueError, match=why):
+        bench_body.streamed_plan(args.pop("B"), args.pop("layers"), args.pop("r"),
+                                 args.pop("g"), args.pop("s"), args.pop("c"), **args)
+
+
+def _mma16_rows(frag: torch.Tensor, k: int, x: torch.Tensor) -> torch.Tensor:
+    """D = A x^T of a 16-row tile as streamed_in's a_frag16 feeds
+    mma.m16n8k16: lane (g, t) reads 8 bytes of row g and 8 of row g + 8 at
+    k-step kk, registers (a0, a1, a2, a3) = (row g's first pair, row g +
+    8's first pair, row g's second pair, row g + 8's second pair), and the
+    tensor cores take a0 as A[g][2t, + 1], a1 as A[g + 8][2t, + 1], a2 as
+    A[g][2t + 8, + 9] and a3 as A[g + 8][2t + 8, + 9] (PTX ISA).  x (n, K)
+    -> (16, n), float64."""
+    f = frag.double().reshape(k // 16, 16, 4, 2, 2)  # k-step, row, lane quarter, pair, element
+    xd = x.double()
+    d = torch.zeros(16, x.shape[0], dtype=torch.float64)
+    for kk in range(k // 16):
+        for g in range(8):
+            for t in range(4):
+                a0, a2 = f[kk, g, t]  # lo.x, lo.y
+                a1, a3 = f[kk, g + 8, t]  # hi.x, hi.y
+                c0 = 16 * kk + 2 * t
+                for row, lo_pair, hi_pair in ((g, a0, a2), (g + 8, a1, a3)):
+                    d[row] += (lo_pair[0] * xd[:, c0] + lo_pair[1] * xd[:, c0 + 1]
+                               + hi_pair[0] * xd[:, c0 + 8] + hi_pair[1] * xd[:, c0 + 9])
+    return d
+
+
+def test_streamed_pack_multiplies_out():
+    """P3's pack unpacks to the weights bit for bit; streamed_in block i's
+    fragments, read as a_frag16 hands them to the tensor cores, give gate
+    pairs [8i, 8i + 8)'s a-rows (tile rows 0-7) and g-rows (8-15) of x2 @ W0
+    + x1 @ W1 + h @ W2 + cond @ Wc; streamed_out's are body_mma's out-tiles
+    and give its rows of gated @ [w_skip | w_out]."""
+    w = bench_body.weights(**FRAG, layers=2)
+    r, g, s_ch, c = FRAG["R"], FRAG["G"], FRAG["S"], FRAG["C"]
+    packed = bench_body.streamed_pack(w)
+    plan = bench_body.streamed_plan(3, 2, r, g, s_ch, c)
+    assert packed["streamed_in"].shape == (2, plan["in_ctas"], plan["in_bytes"] // 2)
+    assert packed["streamed_out"].shape == (2, bench_body.CTAS, plan["out_bytes"] // 2)
+    for k, v in bench_body.streamed_unpack(packed, r, g, s_ch, c).items():
+        assert torch.equal(v.view(torch.int16), w[k].view(torch.int16)), k
+    frag = bench_body.frag_pack(w)
+    n_in = frag.shape[2] - packed["streamed_out"].shape[2]
+    assert torch.equal(packed["streamed_out"], frag[..., n_in:])  # body_mma's out-tiles
+    kt, kh, ko, _ = (16 * k for k in plan["k_steps"])
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(3, kt + kh).astype(np.float32)).to(torch.bfloat16)
+    x[:, kt + r + c:] = 0
+    wcat = torch.cat([w["w_dil"][1, 0], w["w_dil"][1, 1], w["w_dil"][1, 2], w["w_c"][1]], 0)
+    ref = x[:, :kt + r + c].double() @ wcat.double()  # (3, G)
+    g2 = g // 2
+    for i in (0, 5, plan["in_ctas"] - 1):
+        run = packed["streamed_in"][1, i]
+        got = _mma16_rows(run[:16 * kt], kt, x[:, :kt]) + _mma16_rows(run[16 * kt:], kh, x[:, kt:])
+        cols = list(range(8 * i, 8 * i + 8))
+        torch.testing.assert_close(got, ref[:, cols + [q + g2 for q in cols]].t(), rtol=1e-12,
+                                   atol=1e-12)
+    gated = torch.from_numpy(rng.randn(3, g2).astype(np.float32)).to(torch.bfloat16)
+    want = gated.double() @ torch.cat([w["w_skip"][1], w["w_out"][1]], 1).double()
+    rs, rh = s_ch // 128, r // 128
+    cols = [77 * rs + q for q in range(rs)] + [s_ch + 77 * rh + q for q in range(rh)]
+    torch.testing.assert_close(_mma_rows(packed["streamed_out"][1, 77], plan["rows_out"], ko, gated),
+                               want[:, cols].t(), rtol=1e-12, atol=1e-12)
+
+
+def _kernel_body(code: str, name: str) -> str:
+    """The body of ``__global__ ... name(...)`` in comment-free source."""
+    start = re.search(r"__global__ void[^{;]*?\b" + name + r"\(", code).end()
+    depth, i = 0, code.index("{", start)
+    for j in range(i, len(code)):
+        depth += {"{": 1, "}": -1}.get(code[j], 0)
+        if depth == 0:
+            return code[i:j + 1]
+    raise AssertionError(f"no body for {name}")
+
+
+def test_streamed_kernels_chain_by_pdl_in_a_graph():
+    """P3 is streamed_in and streamed_out launched by cudaLaunchKernelEx with
+    programmatic stream serialization, captured into a CUDA graph that is
+    replayed, with the constants the wrapper plans with (streamed_in's
+    16-row tiles on mma's whole m16); each kernel lets
+    its successor start first, brings its weights by a bulk copy before
+    griddepcontrol.wait, and reads what the call writes only after it.  The
+    first design's per-layer kernels and their host loop are gone."""
+    found = _cu_constants("probe_body.cu")
+    assert int(found["kThreads"]) == bench_body.STREAMED_THREADS
+    assert int(found["kCtas"]) == bench_body.CTAS
+    assert int(found["kInRows"]) == bench_body.IN_ROWS
+    code = _code("probe_body.cu")
+    for gone in ("body_in", "body_out"):
+        assert not re.search(r"\b" + gone + r"\b", code), gone
+    for need in ("cudaLaunchAttributeProgrammaticStreamSerialization", "cudaLaunchKernelEx",
+                 "cudaStreamBeginCapture", "cudaGraphInstantiate", "cudaGraphLaunch",
+                 "griddepcontrol.launch_dependents", "griddepcontrol.wait",
+                 "cudaSharedmemCarveoutMaxShared"):
+        assert need in code, need
+    assert re.findall(r"launch_phase\((\w+),", code) == ["streamed_in", "streamed_out"]
+    written = ("__ldcg(", "stage_taps(", "stage_h(", "stage_rows(", "p.tbase", "p.h[",
+               "p.skip[", "p.ring[", "p.gb[", "p.hb[", "p.condb[")
+    for name in ("streamed_in", "streamed_out"):
+        body = _kernel_body(code, name)
+        assert body.index("pdl_trigger();") < body.index("pdl_wait();")
+        work = body[body.index("if (!kLayerWork)"):]
+        work = work[work.index("}") + 1:]  # past the empty variant's own wait
+        before, after = work.split("pdl_wait();")
+        assert "streamed_weights(" in before and "__syncthreads();" in before
+        for w in written:
+            assert w not in before, f"{name} touches {w} before griddepcontrol.wait"
+        assert "__ldcg(p.tbase)" in after
+        if name == "streamed_in":
+            assert "__ldg(p.b" in before  # the gate's biases: read-only inputs
+    helper = code[code.index("void streamed_weights("):]
+    assert "bulk_load(" in helper[:helper.index("\n}")]
+
+
 def test_cluster_plan():
     """P1's plan: a cluster of 8 CTAs a batch row, 64 channels and 64 w
     values a thread (in registers) each, the ring slice of 504 slots x 64
@@ -413,10 +561,11 @@ def test_ablation_edits_match_the_source(name):
     lambda: ablate_body.main([]),
     lambda: bench_taps.device_plan(512, 504),
     lambda: bench_body.device_plan(8, 24, 512, 512, 256, 80),
+    lambda: bench_body.streamed_device_plan(8, 24, 512, 512, 256, 80),
     lambda: bench_sync.main([]),
 ], ids=["taps-make", "taps-bench", "resident", "streamed", "body2-make", "body2-bench",
         "taps-main", "body-main", "body2-main", "ablate-main", "taps-plan", "body-plan",
-        "sync-main"])
+        "streamed-plan", "sync-main"])
 def test_cuda_without_card_raises(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
