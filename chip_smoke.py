@@ -47,11 +47,14 @@ Phases; any failure exits non-zero before a result line is printed:
             mel frames at full width, timed, launches counted; (v) the
             kernel against its plain version at that path's shape, full
             width, with first_conv zeroed as in (i): the int8 pack with
-            final1 in float32 against the plain version, with packs whose
-            scales are wrong rejected; the bf16 pack and generate's int8
+            final1 in float32 against the plain version over the path's
+            first F32_MAIN_STEPS steps (the plain sampler's depth cut as in
+            phase 4; the kernel's line is timed there), with packs whose
+            scales are wrong rejected; the open-loop plain version over all
+            steps held to the plain version on those; the bf16 pack and generate's int8
             pack (bf16 final1), the packs the main paths run, against the
-            open-loop plain version (all steps at once, itself held to the
-            plain version on the first pack), every block's draws equal,
+            open-loop plain version (all steps at once), every block's
+            draws equal,
             with packs with a wrong ring tap, zeroed skip/out rows or
             final1's skip inputs reversed rejected; (vi) the profiler's
             records of one bf16 and one int8 main-path generate call:
@@ -203,9 +206,27 @@ Phases; any failure exits non-zero before a result line is printed:
             the 48 wavs, in a thread beside the children: Harvest card
             against CPU (voicing agreement 0.99, median relative error
             1e-4), the mc card against CPU (1e-3 of its range).
+ 15. parallel the mesh layer (dvc_tpu_torch/parallel, torch.distributed; no
+            hand kernel: NCCL's collectives are GSPMD's): a one-rank NCCL
+            group through a FileStore, then (i) Trainer's mesh branch (the
+            default use_mesh) at the full VAEConfig and bench.py's 256 x 64
+            against the plain step from the same weights, batch and seed
+            (loss terms 1e-5 relative, phase 8's gradient and statistics
+            limits), both timed in turns, the ratio and the peak memory,
+            and ShardedLSTM (the tensor-parallel LSTM) over the one-rank
+            group against the nn.LSTM it wraps, forward and backward;
+            (ii) the GE2E step with a mesh against the plain step; (iii)
+            whole_utterance_encode(mesh) on the card against the CPU; (iv)
+            with two cards or more, two NCCL ranks (chip_smoke.py
+            --parallel-rank) running the full-width VAE step sharded dp 2
+            (ZeRO) and mp 2 (tensor parallel) in float64 (phase 8's
+            gradient limit), and the halo conv, against one process, then
+            `train` through torchrun on two cards against one process
+            (epoch losses, rank 0's checkpoints); with one card it says
+            so.
 Each phase prints its seconds.  The lines before the last report the card
 (nvidia-smi name and power limit), timings and one JSON line of kernels
-(phases 8-14 add none); the last line is
+(phases 8-15 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -242,8 +263,9 @@ BF16_ATOL = 0.05   # bf16 roundings of h, the gate and the skip flip by one ulp
                    # any other small change: float32 is the fine check
 TRAJ_STD = 0.05    # the doctored trajectory's spread, set by doctor_head and
                    # required at T = 1024, start-up transient included
-F32_MAIN_STEPS = 4096  # phase 4's float32 check: the first steps of the main path's cond
-                       # (the sampler is causal, so they are the full run's first steps)
+F32_MAIN_STEPS = 4096  # phase 4's float32 check and phase 6 (v)'s plain sampler: the first
+                       # steps of the main path's cond (the sampler is causal, so they are
+                       # the full run's first steps)
 MAIN_STD = 0.02    # required over the main path's 16,384 steps, where the
                    # steady trajectory, which moves less, dominates
 INT8_FINE_ATOL = 6e-3  # int8 kernel vs plain at the narrow width, feedback cut:
@@ -2811,6 +2833,344 @@ def world_steps(card, dev, recipe, kids):
           f"{json.dumps({k: round(v, 1) for k, v in secs.items()})}", flush=True)
 
 
+PARALLEL_TIMEOUT_S = 300  # phase 15's two-card ranks: start-up, NCCL and four full-width steps
+LONG_CONTEXT_RTOL = 1e-4  # phase 15 (iii), card against CPU: phase 12's long-context limit
+CONV_RTOL = 2e-5          # the halo conv against F.conv1d (tests/test_sequence_parallel.py)
+CLI_LOSS_RTOL = 1e-3      # torchrun train's epoch losses against one process's: four Adam
+                          # steps, each of which may step a rounding-noise gradient either way
+
+
+def mesh_step_against_plain(card, dev):
+    """Phase 15 (i): Trainer's mesh branch (use_mesh, the default) on the
+    one-rank NCCL group at the full VAEConfig and bench.py's batch, against
+    the plain step (use_mesh=False) from the same weights, batch and step
+    seed: the loss terms, every gradient, the BN statistics; then both timed
+    in turns (plain, mesh, mesh, plain) and the mesh step's peak memory."""
+    from dvc_tpu_torch.config import Config, TrainConfig
+    from dvc_tpu_torch.parallel.tensor import MeshAdam
+    from dvc_tpu_torch.train.trainer import Trainer
+    t0 = time.perf_counter()
+    cfg = Config(train=TrainConfig(batch_size=BENCH_BATCH, seed=SEED))
+    plain, mesh = Trainer(cfg, use_mesh=False, device=dev), Trainer(cfg, device=dev)
+    check(plain.mesh is None and mesh.mesh is not None and isinstance(mesh.optimizer, MeshAdam),
+          "the default Trainer did not take its mesh branch under a process group")
+    g = torch.Generator(device=dev).manual_seed(15)
+    x1, x2 = (torch.rand(BENCH_BATCH, 80, BENCH_FRAMES, device=dev, generator=g)
+              for _ in range(2))
+    t_p, t_m = plain.step_on(x1, x2), mesh.step_on(x1, x2)
+    term_err = max(abs(a.item() - b.item()) / max(abs(a.item()), 1e-12) for a, b in zip(t_p, t_m))
+    grad_err, bias_share = vae_grad_errs(
+        {n: p.grad.cpu() for n, p in plain.model.named_parameters()},
+        {n: p.grad.cpu() for n, p in mesh.model.named_parameters()})
+    stats_m = dict(mesh.model.named_buffers())
+    stat_err = max((b - stats_m[n]).abs().max().item()
+                   for n, b in plain.model.named_buffers() if "running" in n)
+    print(f"mesh step vs plain step [{card}] one-rank NCCL group, full width, batch "
+          f"{BENCH_BATCH} x {BENCH_FRAMES}, the defaults (bfloat16 inputs, pair_fused): loss "
+          f"{t_p.total.item():.3f}; loss terms rel err {term_err:.3e} (limit {TERM_RTOL}), "
+          f"gradients rel err {grad_err:.3e} (limit {GRAD_RTOL}), pre-BN conv biases' share "
+          f"{bias_share:.3e} (limit {PRE_BN_BIAS_SHARE}), BN running stats max err "
+          f"{stat_err:.3e} (limit {STATS_ATOL})", flush=True)
+    check(term_err <= TERM_RTOL, f"the mesh step's loss terms differ: {term_err}")
+    check(grad_err <= GRAD_RTOL, f"the mesh step's gradients differ: {grad_err}")
+    check(bias_share <= PRE_BN_BIAS_SHARE, f"mesh step pre-BN bias gradients not ~0: {bias_share}")
+    check(stat_err <= STATS_ATOL, f"the mesh step's BN statistics differ: {stat_err}")
+    iters, ms = 10, {"plain": [], "mesh": []}
+    for name in ("plain", "mesh", "mesh", "plain"):
+        tr = plain if name == "plain" else mesh
+        for _ in range(2):
+            tr.step_on(x1, x2)
+        torch.cuda.synchronize()
+        if name == "mesh" and not ms["mesh"]:
+            torch.cuda.reset_peak_memory_stats(dev)
+            held_gb = torch.cuda.memory_allocated(dev) / 1e9
+        _, t = events_ms(lambda: [tr.step_on(x1, x2) for _ in range(iters)])
+        if name == "mesh" and not ms["mesh"]:
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        ms[name].append(t / iters)
+    check(all(math.isfinite(t.item()) for t in mesh.step_on(x1, x2)), "mesh step loss not finite")
+    p_ms, m_ms = (sum(v) / len(v) for v in (ms["plain"], ms["mesh"]))
+    moments = mesh.optimizer.moment_bytes()
+    print(f"mesh step timing [{card}] batch {BENCH_BATCH} x {BENCH_FRAMES}: plain "
+          f"{' / '.join(f'{v:.2f}' for v in ms['plain'])} ms, mesh "
+          f"{' / '.join(f'{v:.2f}' for v in ms['mesh'])} ms a step (means of {iters}, in turns "
+          f"plain, mesh, mesh, plain); mesh / plain {m_ms / p_ms:.4f}; mesh peak memory "
+          f"{peak_gb:.2f} GB ({peak_gb - held_gb:.2f} GB above the {held_gb:.2f} GB held, both "
+          f"trainers); Adam moments on this rank {sum(h for h, _ in moments.values()) / 1e6:.1f}"
+          f" MB (dp 1: none sharded); {time.perf_counter() - t0:.1f} s", flush=True)
+    del plain, mesh
+    torch.cuda.empty_cache()
+    return {"plain_ms": p_ms, "mesh_ms": m_ms, "peak_gb": peak_gb}
+
+
+def ge2e_mesh_step(card, dev):
+    """Phase 15 (ii): the GE2E step with a mesh (the all-gather of the
+    embeddings and the averaged gradients, here over one rank) against the
+    plain step at the full SpeakerEncoderConfig, from the same weights and
+    batch; SpeakerEncoderTrainer(use_mesh=True) keeps dvc_tpu's rule and
+    takes no mesh on one rank."""
+    from dvc_tpu_torch.config import MeshConfig, SpeakerEncoderConfig
+    from dvc_tpu_torch.parallel.mesh import make_mesh
+    from dvc_tpu_torch.train import speaker_trainer as st
+    from dvc_tpu_torch.train.trainer import make_optimizer
+    cfg = SpeakerEncoderConfig()
+    g = torch.Generator(device=dev).manual_seed(16)
+    batch = torch.rand(cfg.speakers_per_batch, cfg.utterances_per_speaker,
+                       cfg.partials_n_frames, cfg.mel_n_channels, device=dev, generator=g)
+    base = st.create_speaker_encoder(cfg, SEED + 41, dev)
+    mesh = make_mesh(MeshConfig(data_parallel=1, model_parallel=1), dev)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        model = copy.deepcopy(base)
+        step = st.make_ge2e_step(model, make_optimizer(model, cfg.learning_rate), m)
+        loss = step(batch, with_sim=False).item()
+        _, t = events_ms(lambda: [step(batch, with_sim=False) for _ in range(5)])
+        runs[name] = (loss, {n: p.grad.cpu() for n, p in model.named_parameters()}, t / 5)
+    loss_err = abs(runs["mesh"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    grad_err, sim_err = ge2e_grad_errs(runs["plain"][1], runs["mesh"][1])
+    tr = st.SpeakerEncoderTrainer(cfg, device=dev)
+    print(f"GE2E mesh step vs plain [{card}] one-rank NCCL group, batch {tuple(batch.shape)}: "
+          f"loss {runs['plain'][0]:.5f}, rel err {loss_err:.3e} (limit {TERM_RTOL}), gradients "
+          f"rel err {grad_err:.3e} (limit {GRAD_RTOL}), similarity gradients abs err "
+          f"{sim_err:.3e} (limit {SIM_GRAD_ATOL}); {runs['plain'][2]:.2f} / {runs['mesh'][2]:.2f} "
+          f"ms a step plain / mesh (5 steps each); the trainer's mesh on one rank: {tr.mesh}",
+          flush=True)
+    check(loss_err <= TERM_RTOL, f"GE2E mesh step loss differs: {loss_err}")
+    check(grad_err <= GRAD_RTOL, f"GE2E mesh step gradients differ: {grad_err}")
+    check(sim_err <= SIM_GRAD_ATOL, f"GE2E mesh step similarity gradients differ: {sim_err}")
+    check(tr.mesh is None, "SpeakerEncoderTrainer took a mesh on one rank")
+
+
+def sharded_lstm_on_card(card, dev):
+    """Phase 15 (i), after the mesh step: ShardedLSTM, the tensor-parallel LSTM of the mesh
+    trainer (one rank's blocks of its weights, gathered over the model
+    axis, run as the original nn.LSTM through torch.func.functional_call),
+    over the one-rank group: the full VAE's dec_lstm2 with its weights
+    placed as model_placement places them, forward and backward in training
+    mode on cuDNN, against the nn.LSTM it wraps."""
+    from dvc_tpu_torch.config import MeshConfig, VAEConfig
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.parallel.mesh import make_mesh, model_placement
+    from dvc_tpu_torch.parallel.tensor import ShardedLSTM
+    lstm = seeded(lambda: DisentangledVAE(VAEConfig()), SEED + 43).dec_lstm2.to(dev).train()
+    dims = {n: getattr(model_placement(n, tuple(w.shape), 2), "dim", None)
+            for n, w in lstm.named_parameters()}
+    sharded = ShardedLSTM(lstm, make_mesh(MeshConfig(), dev), dims).train()
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.rand(BENCH_BATCH, BENCH_FRAMES, lstm.input_size, device=dev, generator=g)
+    gy = torch.rand(BENCH_BATCH, BENCH_FRAMES, lstm.hidden_size, device=dev, generator=g)
+    runs = []
+    for m in (lstm, sharded):
+        xi = x.clone().requires_grad_()
+        y, _ = m(xi)
+        (y * gy).sum().backward()
+        runs.append([y.detach(), xi.grad, *(p.grad for _, p in m.named_parameters())])
+    err = max(rel_err(a, b) for a, b in zip(runs[1], runs[0]))
+    print(f"ShardedLSTM [{card}] one-rank model group, dec_lstm2 {lstm.input_size} -> "
+          f"{lstm.hidden_size} x {lstm.num_layers} layers, ({BENCH_BATCH}, {BENCH_FRAMES}), "
+          f"sharded weights {sorted(n for n, d in dims.items() if d is not None)}: output and "
+          f"gradients against nn.LSTM {err:.3e} of their max (limit {TERM_RTOL})", flush=True)
+    check(any(d is not None for d in dims.values()), "dec_lstm2 has no model-sharded weight")
+    check(err <= TERM_RTOL, f"ShardedLSTM differs from nn.LSTM: {err}")
+
+
+def long_context_mesh(card, dev):
+    """Phase 15 (iii): whole_utterance_encode with a mesh (the frame-sharded
+    conv stack and LSTM, over one rank) on the card against the plain
+    encode on the CPU, full VAEConfig, a ragged 4-chunk utterance."""
+    from dvc_tpu_torch.config import MeshConfig, VAEConfig
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.models.long_context import whole_utterance_encode
+    from dvc_tpu_torch.parallel.mesh import make_mesh
+    cfg = VAEConfig()
+    cpu = seeded(lambda: DisentangledVAE(cfg), SEED + 42).eval()
+    card_model = copy.deepcopy(cpu).to(dev)
+    mel = np.random.RandomState(17).rand(1, 80, 4 * cfg.frames - 10).astype(np.float32)
+    got = whole_utterance_encode(cfg, card_model, mel, make_mesh(MeshConfig(), dev))
+    want = whole_utterance_encode(cfg, cpu, mel)
+    err = max(rel_err(a.cpu(), b) for a, b in zip(got, want))
+    print(f"whole_utterance_encode(mesh) [{card}] one-rank NCCL group, full width, "
+          f"{mel.shape[-1]} frames ({got[0].shape[1]} chunks) against the CPU's plain encode: "
+          f"posteriors {err:.3e} of their max (limit {LONG_CONTEXT_RTOL})", flush=True)
+    check(err <= LONG_CONTEXT_RTOL, f"whole_utterance_encode(mesh) differs: {err}")
+
+
+
+def parallel_rank(rank: int, work: str) -> int:
+    """One of phase 15 (iv)'s two NCCL ranks (``chip_smoke.py --parallel-rank
+    <rank> <dir>``): the full-width VAE step at batch 8, sharded dp 2 x mp 1
+    (ZeRO) and dp 1 x mp 2 (tensor parallel), in float64 (models built,
+    inputs and noise drawn under that default dtype: the float32 gradients
+    are too ill-conditioned for a tight check, phase 12), and the halo conv
+    over the frames; rank 0 holds each against the one-process result and
+    writes the errors to <dir>/result.json."""
+    import datetime
+    import torch.distributed as dist
+    from dvc_tpu_torch.config import Config, MeshConfig, TrainConfig
+    from dvc_tpu_torch.parallel.collectives import gather_blocks
+    from dvc_tpu_torch.parallel.mesh import Shard, data_rows, make_mesh
+    from dvc_tpu_torch.parallel.multihost import initialize_distributed
+    from dvc_tpu_torch.parallel.sequence import sequence_sharded_conv1d
+    from dvc_tpu_torch.train.trainer import Trainer
+    from dvc_tpu_torch.utils.device import use_exact_float32
+    use_exact_float32()
+    initialize_distributed(f"file://{work}/store", 2, rank, device="cuda",
+                           timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S // 2))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.RandomState(18)
+    x1, x2 = (rng.rand(TRAIN_BATCH, 80, BENCH_FRAMES).astype(np.float32) for _ in range(2))
+    out = {"cards": [torch.cuda.get_device_name(dev)]}
+    for mp, dt in ((1, torch.float64), (2, torch.float64)):
+        cfg = Config(train=TrainConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="float32"),
+                     mesh=MeshConfig(model_parallel=mp))
+        torch.set_default_dtype(dt)
+        try:
+            tr = Trainer(cfg, device=dev)
+            rows = data_rows(TRAIN_BATCH, tr.mesh)
+            terms = tr.step_on(*(torch.from_numpy(a[rows]).to(dev, dt) for a in (x1, x2)))
+            grads = {}
+            for n, p in tr.model.named_parameters():
+                tp = tr.shardings["params"][n][1]
+                grads[n] = (gather_blocks(p.grad, tp.dim, tr.mesh.model_group)
+                            if isinstance(tp, Shard) else p.grad).cpu()
+            if rank == 0:
+                one = Trainer(cfg, use_mesh=False, device=dev)
+                want = one.step_on(*(torch.from_numpy(a).to(dev, dt) for a in (x1, x2)))
+                ge, bs = vae_grad_errs(
+                    {n: p.grad.cpu() for n, p in one.model.named_parameters()}, grads)
+                out[f"dp{tr.mesh.dp} x mp{tr.mesh.mp}, {str(dt).replace('torch.', '')}"] = {
+                    "term_err": max(abs(a.item() - b.item()) / max(abs(a.item()), 1e-12)
+                                    for a, b in zip(want, terms)),
+                    "grad_err": ge, "bias_share": bs}
+                del one
+            del tr
+        finally:
+            torch.set_default_dtype(torch.float32)
+        torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(19)
+    x = torch.rand(2, 512, 256, generator=g)
+    w, b = torch.rand(512, 512, 5, generator=g) - 0.5, torch.rand(512, generator=g)
+    mesh = make_mesh(MeshConfig(), dev)
+    cols = data_rows(x.shape[-1], mesh)
+    y = sequence_sharded_conv1d(x[..., cols].to(dev), w.to(dev), b.to(dev), mesh)
+    y = gather_blocks(y, 2, mesh.data_group).cpu()
+    if rank == 0:
+        want = torch.nn.functional.conv1d(x.to(dev), w.to(dev), b.to(dev), padding=2).cpu()
+        out["halo_conv_err"] = rel_err(y, want)
+        with open(os.path.join(work, "result.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def two_card_check(card, work):
+    """Phase 15 (iv): with two or more cards, parallel_rank on cards 0 and 1
+    as two processes, within PARALLEL_TIMEOUT_S."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")])}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), work], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise SystemExit(f"chip_smoke: FAILED: two-card ranks not done in {PARALLEL_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          "two-card ranks failed: " + " | ".join(log[-2000:] for log in logs))
+    with open(os.path.join(work, "result.json")) as f:
+        res = json.load(f)
+    failed = []
+    for key, e in res.items():
+        if not isinstance(e, dict):
+            continue
+        print(f"two-card VAE step [{card}] NCCL, {key}, full width, batch {TRAIN_BATCH}, "
+              f"against one process: loss terms {e['term_err']:.3e} (limit {TERM_RTOL}), "
+              f"gradients {e['grad_err']:.3e} (limit {GRAD_RTOL}), pre-BN bias share "
+              f"{e['bias_share']:.3e} (limit {PRE_BN_BIAS_SHARE})", flush=True)
+        if not (e["term_err"] <= TERM_RTOL and e["grad_err"] <= GRAD_RTOL
+                and e["bias_share"] <= PRE_BN_BIAS_SHARE):
+            failed.append(key)
+    print(f"two-card halo conv [{card}] (2, 512, 256) frames over 2 ranks, k = 5: "
+          f"{res['halo_conv_err']:.3e} of the max (limit {CONV_RTOL})", flush=True)
+    check(len(res) == 4 and not failed, f"two-card VAE steps differ from one process: {failed}")
+    check(res["halo_conv_err"] <= CONV_RTOL, f"two-card halo conv differs: {res['halo_conv_err']}")
+
+
+
+def two_card_cli(card, dev, work):
+    """Phase 15 (iv): ``train`` through torchrun on two cards (NCCL, dp 2)
+    against one process, from the same seed on a phase 8-style corpus:
+    rank 0 alone logs and writes the checkpoints, and each epoch's mean
+    loss is the one process's within CLI_LOSS_RTOL."""
+    from dvc_tpu_torch.config import AudioConfig
+    mels = os.path.join(work, "mels")
+    make_corpus(mels, dev, AudioConfig(), 16, lambda ui: 1.2 + 0.05 * ui)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)), os.environ.get("PYTHONPATH", "")])}
+    train = ["-m", "dvc_tpu_torch.cli.run", "train", "--dataset_fp", mels, "--epochs", "2",
+             "--report-interval", "2", "--batch-size", str(TRAIN_BATCH), "--compute-dtype",
+             "float32", "--device", "cuda"]
+    losses, secs = {}, {}
+    for name, launch in (("one", []), ("two", ["-m", "torch.distributed.run", "--standalone",
+                                               "--nproc_per_node=2"])):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *launch, *train, "--log_dir",
+                              os.path.join(work, name)], env=env, capture_output=True,
+                             text=True, timeout=PARALLEL_TIMEOUT_S)
+        secs[name] = time.perf_counter() - t0
+        check(out.returncode == 0, f"train ({name}) failed: {out.stdout[-2000:]}"
+                                   f"{out.stderr[-2000:]}")
+        losses[name] = [float(ln.split("loss ")[1].split()[0]) for ln in out.stdout.splitlines()
+                        if ln.startswith("====> Epoch")]
+    ck = os.path.join(work, "two", "checkpoints")
+    err = max(abs(a - b) / abs(a) for a, b in zip(losses["one"], losses["two"]))
+    print(f"two-card train through torchrun [{card}] 2 epochs at batch {TRAIN_BATCH}, float32: "
+          f"epoch losses {losses['two']} against one process's {losses['one']}, rel err "
+          f"{err:.3e} (limit {CLI_LOSS_RTOL}); {secs['two']:.1f} s against {secs['one']:.1f} s "
+          f"(process start included); checkpoints {sorted(os.listdir(ck))}", flush=True)
+    check(len(losses["one"]) == len(losses["two"]) == 2, f"epoch lines: {losses}")
+    check(err <= CLI_LOSS_RTOL, f"torchrun train's losses differ from one process's: {err}")
+    check(sorted(os.listdir(ck)) == [f"DisentangledVAE_VCTK_2{s}"
+                                     for s in (".msgpack", ".opt.pth", ".pth")],
+          f"torchrun train's checkpoints: {os.listdir(ck)}")
+
+
+def parallel_phase(card, dev):
+    """Phase 15: the mesh layer (dvc_tpu_torch/parallel, torch.distributed;
+    no hand kernel: NCCL's collectives are GSPMD's)."""
+    import datetime
+    import torch.distributed as dist
+    from dvc_tpu_torch.parallel.multihost import initialize_distributed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as work:
+        multi = initialize_distributed(f"file://{work}/store", 1, 0, device=dev,
+                                       timeout=datetime.timedelta(seconds=300))
+        check(not multi and dist.get_backend() == "nccl", "no one-rank NCCL group")
+        try:
+            timing = mesh_step_against_plain(card, dev)
+            sharded_lstm_on_card(card, dev)
+            ge2e_mesh_step(card, dev)
+            long_context_mesh(card, dev)
+        finally:
+            dist.destroy_process_group()
+        if torch.cuda.device_count() >= 2:
+            os.makedirs(os.path.join(work, "two"))
+            two_card_check(card, os.path.join(work, "two"))
+            two_card_cli(card, dev, os.path.join(work, "cli"))
+        else:
+            print(f"two-card check [{card}]: not run, {torch.cuda.device_count()} card visible",
+                  flush=True)
+    return timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -3193,35 +3553,44 @@ def main() -> int:
     # wavenet_generate_plain; then the packs the two main paths run, bf16 and
     # int8 with bf16 final1 (generate's default), against
     # wavenet_open_loop_plain: the same function over all steps at once,
-    # held here to wavenet_generate_plain on the first pack.
+    # held here to wavenet_generate_plain on the first pack.  That plain
+    # sampler runs the first F32_MAIN_STEPS steps (its depth cut to keep the
+    # script's time; the sampler is causal, so they are the full run's first
+    # steps), and the kernel's line times the kernel on the same cond.
     _, q8_ms = events_ms(lambda: ws.wavenet_generate(q8, cond, 0, True))
     nofb = copy.deepcopy(det)
     with torch.no_grad():
         nofb.first_conv.weight.zero_()
     f8 = ws.pack_wavenet_params(nofb, torch.float32, dev, quantize=True)
     kern8, _ = events_ms(lambda: ws.wavenet_generate(f8, cond, 0, True))
-    _, k8_ms = events_ms(lambda: ws.wavenet_generate(f8, cond, 0, True))
-    plain8, p8_ms = events_ms(lambda: ws.wavenet_generate_plain(f8, cond, 0, True))
+    _, k8_full_ms = events_ms(lambda: ws.wavenet_generate(f8, cond, 0, True))
+    cond_n = cond[:, :F32_MAIN_STEPS].contiguous()
+    _, k8_ms = events_ms(lambda: ws.wavenet_generate(f8, cond_n, 0, True))
+    plain8, p8_ms = events_ms(lambda: ws.wavenet_generate_plain(f8, cond_n, 0, True))
     open8, o8_ms = events_ms(lambda: ws.wavenet_open_loop_plain(f8, cond))
-    ol_max = (open8 - plain8).abs().max().item()
-    ol_rms = (open8 - plain8).pow(2).mean().sqrt().item()
-    b8_ms, b8_by = bound(f8, cond)
+    ol_max = (open8[:, :F32_MAIN_STEPS] - plain8).abs().max().item()
+    ol_rms = (open8[:, :F32_MAIN_STEPS] - plain8).pow(2).mean().sqrt().item()
+    b8_ms, b8_by = bound(f8, cond_n)
     print(f"kernel at main-path shapes [{card}] cond {tuple(cond.shape)} int8, final1 float32, "
-          f"no feedback: {k8_ms:.1f} ms ({k8_ms * 1e3 / cond.shape[1]:.1f} us/sample-step; "
-          f"generate's bf16-final1 pack {q8_ms:.1f} ms), plain {p8_ms:.1f} ms, bound "
-          f"{b8_ms:.3f} ms ({b8_by}); the open-loop plain version ({o8_ms:.1f} ms) against "
-          f"the plain version: max_abs_err {ol_max:.3e}, rms err {ol_rms:.3e} (the kernel's "
-          f"limits, atol {INT8_FULL_ATOL}, rms {INT8_FULL_RMS})", flush=True)
+          f"no feedback: {k8_full_ms:.1f} ms ({k8_full_ms * 1e3 / cond.shape[1]:.1f} "
+          f"us/sample-step; generate's bf16-final1 pack {q8_ms:.1f} ms); its first "
+          f"{F32_MAIN_STEPS} steps {tuple(cond_n.shape)}: kernel {k8_ms:.1f} ms, plain "
+          f"{p8_ms:.1f} ms, bound {b8_ms:.3f} ms ({b8_by}); the open-loop plain version over "
+          f"all steps ({o8_ms:.1f} ms) against the plain version on those: max_abs_err "
+          f"{ol_max:.3e}, rms err {ol_rms:.3e} (the kernel's limits, atol {INT8_FULL_ATOL}, "
+          f"rms {INT8_FULL_RMS})", flush=True)
     check(math.isfinite(ol_max) and ol_max <= INT8_FULL_ATOL and ol_rms <= INT8_FULL_RMS,
           f"the open-loop plain version disagrees with the plain version: {ol_max} "
           f"(rms {ol_rms})")
 
     def held(name, kern, ref, atol, rms, bad):
         """kern against ref within atol (max) and rms, and every corrupted
-        pack of bad {what: (pack, whether it must fail)} rejected; returns
-        the max error."""
+        pack of bad {what: (pack, whether it must fail)} rejected, over
+        ref's steps (the first of cond's); returns the max error."""
+        steps = ref.shape[1]
+
         def errs(out):
-            d = out - ref
+            d = out[:, :steps] - ref
             return d.abs().max().item(), d.pow(2).mean().sqrt().item()
 
         def passes(e):
@@ -3236,7 +3605,7 @@ def main() -> int:
         check(std > MAIN_STD, f"doctored {name} trajectory does not move")
         rejected = []
         for what, (pack, must) in bad.items():
-            e = errs(ws.wavenet_generate(pack, cond, 0, True))
+            e = errs(ws.wavenet_generate(pack, cond[:, :steps].contiguous(), 0, True))
             print(f"corrupted {name} pack [main-path shape] {what}: max_abs_err {e[0]:.3e}, "
                   f"rms err {e[1]:.3e} {limits}{'' if must else ', reported'}", flush=True)
             rejected.append((what, not must or not passes(e)))
@@ -3298,6 +3667,12 @@ def main() -> int:
     work.cleanup()
     phase_done(14)
 
+    # 15. the mesh layer: a one-rank NCCL group, and two cards where there are
+    parallel = parallel_phase(card, dev)
+    print(f"mesh step against phase 8's plain step [{card}]: {parallel['mesh_ms']:.2f} ms "
+          f"(phase 8: {plain8['ms']:.2f} ms)", flush=True)
+    phase_done(15)
+
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's
         variant (P1 dynamic, P4 stage 4), launches and errors over all."""
@@ -3340,4 +3715,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase 15's two-card ranks
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -186,9 +186,36 @@ def cmd_preprocess(args) -> int:
     return 0
 
 
+_JOINED = []  # the process group _join_ranks created, which main leaves at the end
+
+
+def _join_ranks(args) -> bool:
+    """Join torchrun's process group, if the environment has one (a no-op
+    without it); returns whether this process writes the run's files."""
+    from dvc_tpu_torch.parallel.mesh import has_process_group
+    from dvc_tpu_torch.parallel.multihost import initialize_distributed, is_primary
+    had = has_process_group()
+    initialize_distributed(device=args.device)
+    if not had and has_process_group():
+        _JOINED.append(True)
+    return is_primary()
+
+
+def _leave_ranks() -> None:
+    if _JOINED:
+        import torch.distributed as dist
+        _JOINED.clear()
+        dist.destroy_process_group()
+
+
+def _quiet(*_args) -> None:
+    pass
+
+
 def cmd_train(args) -> int:
     from dvc_tpu_torch.data.dataset import PairedMCCDataset, PairedMelDataset
     from dvc_tpu_torch.train.trainer import Trainer, unported_settings
+    primary = _join_ranks(args)
     cfg = _config_from_args(args)
     bad = unported_settings(cfg)
     if bad:
@@ -199,16 +226,18 @@ def cmd_train(args) -> int:
         # the adversary's classifier is as wide as the corpus has speakers
         cfg = cfg.replace(loss=dataclasses.replace(
             cfg.loss, adv_speakers=len(dataset.speaker_ids)))
-    os.makedirs(args.log_dir, exist_ok=True)
-    with open(os.path.join(args.log_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if primary:
+        os.makedirs(args.log_dir, exist_ok=True)
+        with open(os.path.join(args.log_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
     trainer = Trainer(cfg, checkpoints_path=os.path.join(args.log_dir, "checkpoints"),
                       logs_path=os.path.join(args.log_dir, "logs"),
                       estimation_dir=os.path.join(args.log_dir, "images", "estimation"),
                       device=args.device)
     try:
         trainer.run_training(dataset, args.epochs, report_interval=args.report_interval,
-                             reload_model=not args.do_not_resume)
+                             reload_model=not args.do_not_resume,
+                             logging_func=print if primary else _quiet)
     finally:
         trainer.close()
     return 0
@@ -520,6 +549,7 @@ def cmd_train_speaker(args) -> int:
                                                     SpeakerVerificationSampler)
     from dvc_tpu_torch.train.speaker_trainer import SpeakerEncoderTrainer
     from dvc_tpu_torch.utils.visualizations import Visualizations
+    primary = _join_ranks(args)
     cfg = SpeakerEncoderConfig(speakers_per_batch=args.speakers_per_batch,
                                utterances_per_speaker=args.utterances_per_speaker,
                                learning_rate=args.lr)
@@ -541,15 +571,19 @@ def cmd_train_speaker(args) -> int:
             cfg.partials_n_frames, seed=args.seed)
     trainer = SpeakerEncoderTrainer(cfg, run_id=args.run_id, models_dir=args.models_dir,
                                     device=args.device)
+    log = print if primary else _quiet
     if not args.no_resume and trainer.resume():
-        print(f"resumed {args.run_id} at step {trainer.step}")
+        log(f"resumed {args.run_id} at step {trainer.step}")
     # live loss/EER/step-time curves + periodic embedding projections
-    # (reference encoder/train.py:56-111 visdom/UMAP loop)
-    vis = Visualizations(args.run_id, os.path.join(args.models_dir, "viz"))
-    vis.log_params(cfg)
-    vis.log_dataset(args.clean_data_root, len(sampler.speakers))
+    # (reference encoder/train.py:56-111 visdom/UMAP loop), rank 0's
+    vis = None
+    if primary:
+        vis = Visualizations(args.run_id, os.path.join(args.models_dir, "viz"))
+        vis.log_params(cfg)
+        vis.log_dataset(args.clean_data_root, len(sampler.speakers))
     trainer.train(sampler, args.n_steps, save_every=args.save_every,
-                  backup_every=args.backup_every, vis=vis, projection_every=args.umap_every)
+                  backup_every=args.backup_every, vis=vis, projection_every=args.umap_every,
+                  logging_func=log)
     return 0
 
 
@@ -880,6 +914,8 @@ def main(argv=None) -> int:
         return args.fn(args)
     except NotImplementedError as e:  # a path the port has not yet: say so and stop
         raise SystemExit(str(e)) from e
+    finally:
+        _leave_ranks()
 
 
 if __name__ == "__main__":

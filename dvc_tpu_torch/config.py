@@ -8,8 +8,8 @@ and the config.json that ``train`` writes are dvc_tpu's byte for byte.
 Some fields are records only, read by nothing in the port:
 ``allow_clipping_in_normalization``, ``inference_n_frames``,
 ``gin_channels`` and ``weight_normalization`` (as in dvc_tpu),
-``donate_state`` (there is no jit to donate to) and the whole MeshConfig,
-which stays inert until the port has a mesh layer.
+``donate_state`` (there is no jit to donate to).  MeshConfig lays the
+train mesh over the ranks of a process group (parallel/mesh.py).
 ``checkpoint_format="orbax"`` is kept so a dvc_tpu config reads the same,
 but the trainer refuses it as not yet ported.
 """
@@ -193,8 +193,11 @@ class AutoVCConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """dvc_tpu's device-mesh settings, inert in the port until it has a
-    mesh layer (the data and model axes, -1 = every device on data)."""
+    """dvc_tpu's device-mesh settings: the data and model axes' names and
+    sizes (data_parallel -1: every rank the model axis leaves), and ZeRO
+    sharding of Adam's moments over the data axis.  The Trainer lays this
+    mesh over the ranks of a process group (parallel/mesh.py); one process
+    without one trains as a one-device mesh."""
 
     data_axis: str = "data"
     model_axis: str = "model"

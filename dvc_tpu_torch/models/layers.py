@@ -12,7 +12,8 @@ ConvNorm takes (B, C, T) and LinearNorm acts on the last axis.
 - BatchNorm: an ``nn.BatchNorm1d`` (same state-dict names) whose train mode
   is dvc_tpu's _GroupedBN (layers.py:140-178): statistics per group of the
   batch; in eval mode it normalizes by the running statistics, exactly as
-  dvc_tpu's (layers.py:154-157).  Momentum 0.1 is flax's 0.9.
+  dvc_tpu's (layers.py:154-157).  Momentum 0.1 is flax's 0.9.  Under a
+  mesh (``data_group``) the train-mode statistics span the global batch.
 - LSTM: ``nn.LSTM`` (batch_first); its gate order i, f, g, o is the order
   dvc_tpu's LSTM keeps (layers.py:190-223), so weights carry over as they are.
 - flax_init_: flax's default initializers for the modules the port trains
@@ -30,6 +31,7 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -129,12 +131,19 @@ class ConvNorm(nn.Module):
         return self.conv(x)
 
 
+def stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """BatchNorm's statistics are float32, as dvc_tpu's, or float64 for a
+    float64 input, so that a float64 check resolves what float32 rounds."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over (B, C, T), with dvc_tpu's (flax) momentum convention.
 
     Train mode treats the batch as ``groups`` stacked sub-batches (the two
     halves of a pair-fused GVAE pass when groups = 2) and computes, in
-    float32, each group's mean and biased variance over (B/groups, T); it
+    float32 (float64 for a float64 input: ``stat_dtype``), each group's
+    mean and biased variance over (B/groups, T); it
     normalizes each group by its own.  The running statistics move ONCE a
     call, towards the mean over groups of the means and of the biased
     variances times n/(n-1), n = (B/groups)*T.  Calling
@@ -143,12 +152,22 @@ class BatchNorm(nn.BatchNorm1d):
     dvc_tpu's pair-fused step.  groups = 1 is torch's own train-mode rule.
     ``update_stats`` False (set by frozen_running_stats) skips the update;
     ``stats_in_graph`` (set by running_stats_in_graph) keeps the updated
-    statistics in the autograd graph for the next eval-mode call."""
+    statistics in the autograd graph for the next eval-mode call.
+
+    ``data_group`` (set by parallel.tensor.shard_model_): a process group
+    over which the batch is sharded, each rank's batch stacking its rows of
+    every group.  With more than one rank, train mode takes each group's
+    statistics over the global batch, as dvc_tpu's under a mesh: sums and
+    counts all-reduced for the mean, then the squared deviations for the
+    biased variance, and the backward all-reduces its two sums
+    (_GlobalBatchNorm); the running statistics move once a call, equal on
+    every rank."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
                  groups: int = 1):
         super().__init__(channels, eps=eps, momentum=1.0 - momentum)
         self.groups = groups
+        self.data_group = None
         self.update_stats = True
         self.stats_in_graph = False
         self.graph_stats: tuple[torch.Tensor, torch.Tensor] | None = None
@@ -173,14 +192,20 @@ class BatchNorm(nn.BatchNorm1d):
         b, c, t = x.shape
         if b % g:
             raise ValueError(f"batch {b} does not split into {g} groups")
-        xg = x.reshape(g, b // g, c, t).to(torch.float32)
-        mean = xg.mean(dim=(1, 3), keepdim=True)                 # (g, 1, C, 1)
-        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
-        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, c, t).to(x.dtype)
+        n = (b // g) * t
+        if self.data_group is not None and dist.get_world_size(self.data_group) > 1:
+            xhat, mean, var = _GlobalBatchNorm.apply(x, g, self.eps, self.data_group)
+            n *= dist.get_world_size(self.data_group)
+            y = xhat.to(x.dtype)
+        else:
+            xg = x.reshape(g, b // g, c, t).to(stat_dtype(x))
+            mean = xg.mean(dim=(1, 3), keepdim=True)                 # (g, 1, C, 1)
+            var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+            y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(b, c, t).to(x.dtype)
         y = y * self.weight[:, None] + self.bias[:, None]
         if not self.update_stats:
             return y
-        stats = self.updated_stats(mean.mean(0).flatten(), var.mean(0).flatten(), (b // g) * t)
+        stats = self.updated_stats(mean.mean(0).flatten(), var.mean(0).flatten(), n)
         if self.stats_in_graph:
             self.graph_stats = stats
         with torch.no_grad():
@@ -188,3 +213,40 @@ class BatchNorm(nn.BatchNorm1d):
             self.running_var.copy_(stats[1])
             self.num_batches_tracked.add_(1)
         return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Grouped batch normalization over a batch sharded on ``group``: x
+    (b, C, T) holds this rank's rows of each of g groups; returns x
+    normalized by each group's global mean and biased variance, (b, C, T),
+    and those statistics, (g, 1, C, 1), in stat_dtype."""
+
+    @staticmethod
+    def forward(ctx, x, g, eps, group):
+        b, c, t = x.shape
+        xg = x.reshape(g, b // g, c, t).to(stat_dtype(x))
+        count = (b // g) * t * dist.get_world_size(group)
+        s = xg.sum(dim=(1, 3), keepdim=True)
+        dist.all_reduce(s, group=group)
+        mean = s / count
+        d = xg - mean
+        ss = d.square().sum(dim=(1, 3), keepdim=True)
+        dist.all_reduce(ss, group=group)
+        var = ss / count
+        r = torch.rsqrt(var + eps)
+        xhat = d * r
+        ctx.save_for_backward(xhat, r)
+        ctx.count, ctx.group = count, group
+        ctx.mark_non_differentiable(mean, var)
+        return xhat.reshape(b, c, t), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xhat, r = ctx.saved_tensors
+        g, bg, c, t = xhat.shape
+        dy = gy.reshape(g, bg, c, t).to(xhat.dtype)
+        sums = torch.stack([dy.sum(dim=(1, 3), keepdim=True),
+                            (dy * xhat).sum(dim=(1, 3), keepdim=True)])
+        dist.all_reduce(sums, group=ctx.group)
+        dx = r * (dy - sums[0] / ctx.count - xhat * (sums[1] / ctx.count))
+        return dx.reshape(g * bg, c, t).to(gy.dtype), None, None, None

@@ -1,5 +1,5 @@
 """Whole-utterance (long-context) encoding for the DisentangledVAE (port of
-dvc_tpu/models/long_context.py, single device).
+dvc_tpu/models/long_context.py).
 
 The reference converts an utterance as INDEPENDENT 64-frame chunks, so the
 encoder's receptive field (three k=5 convs and a 2-layer biLSTM) stops at
@@ -9,8 +9,10 @@ linear, style and content heads, whose 8192-wide input fixes 64 frames,
 are applied to each 64-frame slice of that output: no new parameters, any
 checkpoint works.  ``convert_mel_long_context`` drops the per-chunk
 latents into the usual conversion (style = mean over chunks, decode per
-chunk).  dvc_tpu's mesh variant (frame-sharded halo convs and a ring LSTM)
-is not ported yet.
+chunk).  With a ``mesh`` (parallel.mesh.make_mesh) the frame axis is
+sharded over its data axis: halo-exchange convolutions and the
+carry-relay LSTM of parallel/sequence.py, then the LSTM output gathered
+for the heads, so every rank of the mesh returns the whole result.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import torch.nn.functional as F
 
 from dvc_tpu_torch.config import VAEConfig
 from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
-
-NOT_PORTED = "not yet ported — see ROADMAP.md"
+from dvc_tpu_torch.parallel.collectives import gather_blocks
+from dvc_tpu_torch.parallel.mesh import data_rows
+from dvc_tpu_torch.parallel.sequence import (frame_sharded_encode_conv_stack,
+                                             sequence_sharded_lstm)
 
 
 @torch.inference_mode()
@@ -36,25 +40,50 @@ def whole_utterance_encode(cfg: VAEConfig, model: DisentangledVAE, mel, mesh=Non
     An exact multiple of ``cfg.frames`` gets exactly T / frames chunks:
     unlike chunk_mel there is no all-zero last chunk, which would feed fake
     context into the real chunks through the biLSTM (dvc_tpu's deliberate
-    deviation, long_context.py:121-131)."""
-    if mesh is not None:
-        raise NotImplementedError(f"the mesh variant of --long_context is {NOT_PORTED}")
+    deviation, long_context.py:121-131).
+
+    With a ``mesh`` every rank of it calls this with the same ``mel``; the
+    padded frame count must divide the mesh's size, as in dvc_tpu."""
     dev = next(model.parameters()).device
     x = torch.as_tensor(mel, dtype=torch.float32, device=dev)
     t = x.shape[-1]
     n_chunks = -(-t // cfg.frames)
     x = F.pad(x, (0, n_chunks * cfg.frames - t))
-    for m in model.enc_modules:
-        conv, bn = m[0], m[1]
-        x = F.relu(F.batch_norm(conv(x), bn.running_mean, bn.running_var, bn.weight,
-                                bn.bias, training=False, eps=bn.eps))
-    h, _ = model.enc_lstm(x.transpose(1, 2))  # (B, T, 2 * dim_neck)
+    if mesh is None:
+        for m in model.enc_modules:
+            conv, bn = m[0], m[1]
+            x = F.relu(F.batch_norm(conv(x), bn.running_mean, bn.running_var, bn.weight,
+                                    bn.bias, training=False, eps=bn.eps))
+        h, _ = model.enc_lstm(x.transpose(1, 2))  # (B, T, 2 * dim_neck)
+    else:
+        h = _frame_sharded_encode(model, x, mesh)
     # each chunk's slice in (T, W) row-major order, as encode flattens it
     flat = h.reshape(h.shape[0], n_chunks, -1)
     z = F.relu(model.enc_linear(flat))
     style, content = model.style(z), model.content(z)
     s, k = cfg.speaker_size, cfg.content_size
     return style[..., :s], style[..., s:], content[..., :k], content[..., k:]
+
+
+def _frame_sharded_encode(model: DisentangledVAE, x: torch.Tensor, mesh) -> torch.Tensor:
+    """The conv stack and biLSTM of ``model`` over x (B, n_mels, T) with the
+    frame axis sharded over the mesh's data axis; returns the whole LSTM
+    output (B, T, 2 * dim_neck) on every rank."""
+    n_dev = mesh.dp * mesh.mp
+    if x.shape[-1] % n_dev:
+        raise ValueError(f"padded frame count {x.shape[-1]} must divide the {n_dev}-device "
+                         "mesh; pick an utterance length or mesh size accordingly")
+    h = frame_sharded_encode_conv_stack(x[..., data_rows(x.shape[-1], mesh)], model, mesh)
+    h = h.transpose(1, 2)  # (B, T_local, C)
+    lstm = model.enc_lstm
+    for layer in range(lstm.num_layers):
+        outs = []
+        for sfx, rev in (("", False), ("_reverse", True)):
+            w = [getattr(lstm, f"{k}_l{layer}{sfx}")
+                 for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+            outs.append(sequence_sharded_lstm(h, *w, mesh, reverse=rev)[0])
+        h = torch.cat(outs, -1)
+    return gather_blocks(h, 1, mesh.data_group)
 
 
 def convert_mel_long_context(model: DisentangledVAE, source_mel: np.ndarray,

@@ -30,6 +30,7 @@ from torch.nn.utils import skip_init
 
 from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
 from dvc_tpu_torch.models.layers import flax_init_
+from dvc_tpu_torch.parallel.collectives import all_reduce_sum, group_size
 from dvc_tpu_torch.train.losses import LossTerms, gvae_pair_loss
 from dvc_tpu_torch.train.trainer import make_pair_forward
 
@@ -67,22 +68,31 @@ class SpeakerAdversary(nn.Module):
         return self.out(F.relu(self.fc1(F.relu(self.fc0(z)))))
 
 
-def zscore(z: torch.Tensor) -> torch.Tensor:
-    """Per-dim z-score over the batch, with the population std (ddof 0)."""
-    return (z - z.mean(0, keepdim=True)) / (z.std(0, keepdim=True, correction=0) + 1e-5)
+def zscore(z: torch.Tensor, group=None) -> torch.Tensor:
+    """Per-dim z-score over the batch, with the population std (ddof 0).
+    With a process group of more than one rank (the data axis of a mesh,
+    each rank holding its rows) the mean and std are the global batch's,
+    as dvc_tpu's over its sharded batch, and differentiable through it."""
+    if group_size(group) == 1:
+        return (z - z.mean(0, keepdim=True)) / (z.std(0, keepdim=True, correction=0) + 1e-5)
+    n = z.shape[0] * group_size(group)
+    d = z - all_reduce_sum(z.sum(0, keepdim=True), group) / n
+    std = (all_reduce_sum(d.square().sum(0, keepdim=True), group) / n).sqrt()
+    return d / (std + 1e-5)
 
 
 def make_adv_train_step(model: DisentangledVAE, optimizer: torch.optim.Optimizer,
                         adversary: SpeakerAdversary, adv_optimizer: torch.optim.Optimizer,
                         mse_cof: float = 10.0, kl_cof: float = 10.0, adv_cof: float = 10.0,
                         mode: str = "confusion", compute_dtype: str = "float32",
-                        remat: bool = False) -> Callable:
+                        remat: bool = False, data_group=None) -> Callable:
     """Build step(x1, x2, spk, generator=None, eps=None) ->
     (LossTerms, {"adv_ce", "adv_acc"}), all detached.
 
     The contract of trainer.make_train_step plus the speaker ids (B,) and
     the adversary: one backward of ``terms.total + adv_cof * adv_term``,
-    then an Adam update of each net."""
+    then an Adam update of each net.  ``data_group``: the mesh's data axis,
+    over which the confusion mode's z-score spans the global batch."""
     if mode not in ("confusion", "grl"):
         raise ValueError(f"mode must be 'confusion' or 'grl', got {mode!r}")
     forward = make_pair_forward(model, compute_dtype, remat)
@@ -101,7 +111,7 @@ def make_adv_train_step(model: DisentangledVAE, optimizer: torch.optim.Optimizer
             ce = F.cross_entropy(logits, labels)
             adv_term = ce
         else:
-            zc = zscore(zc)
+            zc = zscore(zc, data_group)
             logits = adversary(zc.detach())  # the classifier learns the speaker
             ce = F.cross_entropy(logits, labels)
             # the encoder: classifier frozen, target uniform, -mean(log p)

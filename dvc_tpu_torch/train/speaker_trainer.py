@@ -11,8 +11,15 @@ is saved in dvc_tpu's GE2EState layout (``{run_id}.msgpack``, and
 immutable backups ``{run_id}_bak_{step:06d}.msgpack``), which dvc_tpu's
 ``SpeakerEncoderTrainer.resume`` reads, and the port resumes dvc_tpu's.
 The EER is computed on the host from the logged steps' similarity
-matrices (eval/eer.py), never backpropagated.  One device: ``use_mesh`` is
-accepted and does nothing until the port has dvc_tpu's parallel/.
+matrices (eval/eer.py), never backpropagated.
+
+``use_mesh`` (dvc_tpu's, speaker_trainer.py:76-148): when a process group
+of more than one rank divides the speakers of a batch, every rank reads
+the same batch and embeds its share of the speakers; the (S, U, E)
+embeddings are all-gathered with their gradient, since the GE2E loss
+couples every speaker through the centroids, and the gradients are
+averaged over the ranks before the 0.01 scaling and the clip.  Otherwise
+every rank runs the whole step.  Rank 0 alone saves.
 """
 
 from __future__ import annotations
@@ -25,9 +32,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from dvc_tpu_torch.config import SpeakerEncoderConfig
+from dvc_tpu_torch.config import MeshConfig, SpeakerEncoderConfig
 from dvc_tpu_torch.eval.eer import ge2e_eer
 from dvc_tpu_torch.models.speaker_encoder import SpeakerEncoder
+from dvc_tpu_torch.parallel.collectives import all_gather, average_grads_
+from dvc_tpu_torch.parallel.mesh import Mesh, data_rows, make_mesh, world_size
+from dvc_tpu_torch.parallel.multihost import is_primary
 from dvc_tpu_torch.train.checkpoint import _sorted_tree
 from dvc_tpu_torch.train.trainer import make_optimizer
 from dvc_tpu_torch.utils import msgpack
@@ -67,19 +77,28 @@ def scale_and_clip_grads_(model: SpeakerEncoder, scale: float = SIMILARITY_GRAD_
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
-def make_ge2e_step(model: SpeakerEncoder, optimizer: torch.optim.Optimizer) -> Callable:
+def make_ge2e_step(model: SpeakerEncoder, optimizer: torch.optim.Optimizer,
+                   mesh: Mesh | None = None) -> Callable:
     """Build step(batch, with_sim=True) -> (loss, sim) or loss, detached.
 
     batch is (S, U, T, n_mels); sim the (S*U, S) similarity matrix, which
     only the logging steps need.  After a step each parameter's ``.grad``
-    holds what Adam was given (scaled and clipped)."""
+    holds what Adam was given (scaled and clipped).  With a ``mesh`` every
+    rank passes the same batch and embeds its rows of the speakers on the
+    data axis (see the module docstring)."""
 
     def step(batch: torch.Tensor, with_sim: bool = True):
+        if mesh is not None:
+            batch = batch[data_rows(batch.shape[0], mesh)]
         s, u, t, m = batch.shape
         embeds = model(batch.reshape(s * u, t, m)).reshape(s, u, -1)
+        if mesh is not None:
+            embeds = all_gather(embeds, 0, mesh.data_group)
         loss, sim = model.loss(embeds)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            average_grads_(model.parameters(), mesh.data_group)
         scale_and_clip_grads_(model)
         optimizer.step()
         return (loss.detach(), sim.detach()) if with_sim else loss.detach()
@@ -117,7 +136,8 @@ class SpeakerEncoderTrainer:
     cfg: SpeakerEncoderConfig
     run_id: str = "ge2e"
     models_dir: str = ""
-    use_mesh: bool = True  # accepted for dvc_tpu's signature; one device
+    # data-parallel over the ranks when they divide the speakers of a batch
+    use_mesh: bool = True
     device: str | torch.device = "cuda"
     step: int = field(default=0, init=False)
 
@@ -126,7 +146,11 @@ class SpeakerEncoderTrainer:
         use_exact_float32()
         self.model = create_speaker_encoder(self.cfg, 0, self.device)
         self.optimizer = make_optimizer(self.model, self.cfg.learning_rate)
-        self.step_fn = make_ge2e_step(self.model, self.optimizer)
+        self.mesh = None
+        n = world_size()
+        if self.use_mesh and n > 1 and self.cfg.speakers_per_batch % n == 0:
+            self.mesh = make_mesh(MeshConfig(data_parallel=n, model_parallel=1), self.device)
+        self.step_fn = make_ge2e_step(self.model, self.optimizer, self.mesh)
 
     # -- persistence ({step, model_state, optimizer_state}, train.py:47-54) --
 
@@ -135,6 +159,9 @@ class SpeakerEncoderTrainer:
         return os.path.join(self.models_dir, f"{self.run_id}.msgpack")
 
     def save(self, backup: bool = False) -> None:
+        """Write the state (rank 0 alone: every rank holds the same)."""
+        if not is_primary():
+            return
         os.makedirs(self.models_dir, exist_ok=True)
         data = msgpack.packb(ge2e_state_tree(self.model, self.optimizer, self.step))
         paths = [self._state_path]

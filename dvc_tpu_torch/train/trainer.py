@@ -1,5 +1,5 @@
 """Training runtime of the disentangled VAE (port of dvc_tpu/train/trainer.py:50-453,
-without its mesh and Orbax branches).
+without its Orbax branch).
 
 One train step is forward(pair) + loss + backward + Adam, eager on the
 device: cuDNN convolutions and LSTMs, cuBLAS matmuls, in exact float32
@@ -21,11 +21,28 @@ is taken against the unrounded inputs.
 (``torch.utils.checkpoint`` over the region dvc_tpu wraps in
 ``jax.checkpoint``); ``LossConfig.adv_cof`` > 0 trains the speaker
 adversary of train/adversarial.py beside the VAE.
+
+The mesh (``Trainer.use_mesh``, the default, as in dvc_tpu): with a
+process group (torchrun, parallel.multihost.initialize_distributed) the
+Trainer lays a ``MeshConfig`` mesh over the ranks, dp reduced to the
+largest divisor of the batch, as dvc_tpu does, that leaves the world a
+whole number of meshes (``trainer_dp``).  Each rank walks the same
+seeded pairing and keeps its rows of every batch; the BatchNorms take
+their statistics over the global batch; each rank draws the global
+batch's noise from the step's seed and keeps its rows; the weights that
+``param_sharding_for`` shards compute column-parallel over the model
+axis; ``parallel.tensor.MeshAdam`` averages the gradients and, with
+``MeshConfig.shard_opt_state``, keeps Adam's moments in ZeRO shards; the
+logged terms are averaged over the data axis.  Rank 0 alone writes the
+checkpoints (the files one process writes, gathered from the shards),
+TensorBoard and the PNGs; every rank resumes from the same files.  With
+no process group the step is the one-process step, unchanged.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -33,11 +50,17 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from dvc_tpu_torch.config import Config
 from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
 from dvc_tpu_torch.models.layers import frozen_running_stats
+from dvc_tpu_torch.parallel.mesh import (Mesh, data_rows, has_process_group, make_mesh,
+                                         mesh_shape, shard_batch, train_state_shardings,
+                                         world_size)
+from dvc_tpu_torch.parallel.multihost import is_primary
+from dvc_tpu_torch.parallel.tensor import MeshAdam, gather_full_, scatter_full_, shard_model_
 from dvc_tpu_torch.train import checkpoint as ckpt_lib
 from dvc_tpu_torch.train.losses import LossTerms, gvae_pair_loss
 from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
@@ -156,6 +179,26 @@ def eval_terms(model: DisentangledVAE, x1: torch.Tensor, x2: torch.Tensor,
     return gvae_pair_loss(x1, x2, *outs, mse_cof=mse_cof, kl_cof=kl_cof)
 
 
+def trainer_dp(cfg: Config, world: int) -> int:
+    """The data axis of dvc_tpu's Trainer mesh over ``world`` ranks:
+    ``cfg.mesh``'s, reduced to the largest value that divides the batch
+    (batch 2 on 4 ranks: dp 2) and leaves the world a whole number of
+    dp x mp meshes (3 ranks at batch 8: dp 1, three replicas), so small
+    batches and odd card counts train anywhere."""
+    dp, mp = mesh_shape(cfg.mesh, world)
+    b = cfg.train.batch_size
+    while dp > 1 and (b % dp or world % (dp * mp)):
+        dp -= 1
+    return dp
+
+
+def trainer_mesh(cfg: Config, device: str | torch.device = "cuda") -> Mesh:
+    """dvc_tpu's Trainer mesh: ``cfg.mesh`` over every rank, its data axis
+    by ``trainer_dp``."""
+    dp = trainer_dp(cfg, world_size())
+    return make_mesh(dataclasses.replace(cfg.mesh, data_parallel=dp), device)
+
+
 def _step_seed(seed: int, step: int) -> int:
     """The noise seed of one train step, a function of (seed, step) only, as
     dvc_tpu folds the step into its key: a resumed run draws what an
@@ -173,6 +216,7 @@ class Trainer:
     logs_path: str = ""
     estimation_dir: str = ""
     run_name: str = ckpt_lib.RUN_NAME
+    use_mesh: bool = True
     device: str | torch.device = "cuda"
     step: int = field(default=0, init=False)
 
@@ -183,8 +227,19 @@ class Trainer:
         self.device = resolve_device(self.device)
         use_exact_float32()  # float32 training, never TF32
         train, loss = self.cfg.train, self.cfg.loss
+        # the mesh needs a process group; one process trains as it always has
+        self.mesh = (trainer_mesh(self.cfg, self.device)
+                     if self.use_mesh and has_process_group() else None)
         self.model = create_model(self.cfg, self.device)
-        self.optimizer = make_optimizer(self.model, train.learning_rate)
+        if self.mesh is None:
+            self.optimizer = make_optimizer(self.model, train.learning_rate)
+        else:
+            self.shardings = train_state_shardings(self.model, self.mesh.shape,
+                                                   self.cfg.mesh.shard_opt_state)
+            shard_model_(self.model, self.mesh, self.shardings["params"])
+            self.optimizer = MeshAdam(self.model.named_parameters(), self.mesh,
+                                      train.learning_rate, self.shardings["params"],
+                                      self.shardings["opt_state"])
         # the adversary (adv_cof > 0) lives beside the VAE, outside its
         # checkpoints; after a resume it starts again from its seed
         self.adversary = self.adv_optimizer = None
@@ -197,11 +252,15 @@ class Trainer:
             self.adversary = SpeakerAdversary(
                 self.cfg.vae.content_size, loss.adv_speakers,
                 generator=torch.Generator().manual_seed(train.seed + 2)).to(self.device)
-            self.adv_optimizer = make_optimizer(self.adversary, loss.adv_lr)
+            # dvc_tpu replicates the adversary's state over the mesh
+            self.adv_optimizer = (
+                make_optimizer(self.adversary, loss.adv_lr) if self.mesh is None
+                else MeshAdam(self.adversary.named_parameters(), self.mesh, loss.adv_lr))
             self.train_step = make_adv_train_step(
                 self.model, self.optimizer, self.adversary, self.adv_optimizer,
                 mse_cof=loss.mse_cof, kl_cof=loss.kl_cof, adv_cof=loss.adv_cof,
-                mode=loss.adv_mode, compute_dtype=train.compute_dtype, remat=train.remat)
+                mode=loss.adv_mode, compute_dtype=train.compute_dtype, remat=train.remat,
+                data_group=None if self.mesh is None else self.mesh.data_group)
         else:
             self.train_step = make_train_step(
                 self.model, self.optimizer, mse_cof=loss.mse_cof, kl_cof=loss.kl_cof,
@@ -217,9 +276,16 @@ class Trainer:
         state and step); returns the next epoch (1 when none is found).
         require=True raises instead."""
         loaded = None
-        if self.checkpoints_path:
+        if self.checkpoints_path and self.mesh is None:
             loaded = ckpt_lib.load_train_state(self.checkpoints_path, self.model,
                                                self.optimizer, self.run_name)
+        elif self.checkpoints_path:
+            # every rank reads the whole state and keeps its shards
+            full, full_opt = self._full_template()
+            loaded = ckpt_lib.load_train_state(self.checkpoints_path, full, full_opt,
+                                               self.run_name)
+            if loaded is not None:
+                scatter_full_(self.model, self.optimizer, full, full_opt)
         if loaded is None:
             if require:
                 raise FileNotFoundError(
@@ -230,9 +296,27 @@ class Trainer:
         return epoch + 1
 
     def save(self, epoch: int) -> str:
-        return ckpt_lib.save_checkpoint(self.checkpoints_path, self.run_name, epoch,
-                                        self.model, self.optimizer, self.step,
-                                        fmt=self.cfg.train.checkpoint_format)
+        """Write the epoch's checkpoint; returns the .pth's path.  Under a
+        mesh every rank gathers the shards and rank 0 writes the files one
+        process writes; no rank returns before they are whole."""
+        if self.mesh is None:
+            return ckpt_lib.save_checkpoint(self.checkpoints_path, self.run_name, epoch,
+                                            self.model, self.optimizer, self.step,
+                                            fmt=self.cfg.train.checkpoint_format)
+        full, full_opt = self._full_template()
+        gather_full_(full, full_opt, self.model, self.optimizer)
+        path = os.path.join(self.checkpoints_path, f"{self.run_name}_{epoch}{ckpt_lib.SUFFIX}")
+        if is_primary():
+            path = ckpt_lib.save_checkpoint(self.checkpoints_path, self.run_name, epoch,
+                                            full, full_opt, self.step,
+                                            fmt=self.cfg.train.checkpoint_format)
+        dist.barrier()
+        return path
+
+    def _full_template(self) -> tuple[DisentangledVAE, torch.optim.Adam]:
+        """An unsharded VAE and its Adam on the CPU, for the checkpoints."""
+        full = create_model(self.cfg, "cpu")
+        return full, make_optimizer(full, self.cfg.train.learning_rate)
 
     # -- steps ----------------------------------------------------------------
 
@@ -244,32 +328,66 @@ class Trainer:
                 spk: torch.Tensor | None = None) -> LossTerms:
         """One train step on device batches, with this step's noise.  With
         the adversary, ``spk`` holds the speaker ids and the step's
-        {"adv_ce", "adv_acc"} land in ``adv_metrics``."""
+        {"adv_ce", "adv_acc"} land in ``adv_metrics``.  Under a mesh the
+        batches are this rank's rows and the terms and metrics returned
+        are their means over the data axis."""
         self._gen.manual_seed(_step_seed(self.cfg.train.seed + 1, self.step))
+        noise = ({"generator": self._gen} if self.mesh is None
+                 else {"eps": self._rank_eps(x1.shape[0])})
         if self.adversary is None:
-            terms = self.train_step(x1, x2, generator=self._gen)
+            terms = self.train_step(x1, x2, **noise)
         else:
-            terms, self.adv_metrics = self.train_step(x1, x2, spk, generator=self._gen)
+            terms, self.adv_metrics = self.train_step(x1, x2, spk, **noise)
+        if self.mesh is not None:
+            means = torch.stack([*terms, *self.adv_metrics.values()])
+            dist.all_reduce(means, group=self.mesh.data_group)
+            means = (means / self.mesh.dp).unbind()
+            terms = LossTerms(*means[:len(terms)])
+            self.adv_metrics = dict(zip(self.adv_metrics, means[len(terms):]))
         self.step += 1
         return terms
+
+    def _rank_eps(self, n: int) -> tuple[torch.Tensor, ...]:
+        """This rank's n rows of the global batch's noise, drawn whole from
+        the step's generator, so the sharded step is the one-process one."""
+        rows = data_rows(n * self.mesh.dp, self.mesh)
+        return tuple(e[rows] for e in draw_eps(self.model, n * self.mesh.dp, self._gen,
+                                                self.device))
 
     # -- epoch loops ---------------------------------------------------------
 
     def _effective_batch_size(self, dataset, logging_func=print) -> int:
         """Partial batches are dropped, so a dataset smaller than the batch
-        would train nothing: clamp to the pair count, and fail loudly when
-        there is no pair at all."""
+        would train nothing: clamp to the pair count (a multiple of the
+        data axis under a mesh), and fail loudly when that leaves none."""
         bs = self.cfg.train.batch_size
         n_pairs = len(dataset)
         if n_pairs >= bs:
             return bs
+        dp = 1 if self.mesh is None else self.mesh.dp
+        eff = n_pairs // dp * dp
         if n_pairs <= 0:
             raise ValueError("dataset yields no same-speaker pair; add data")
+        if eff <= 0:
+            raise ValueError(f"dataset yields only {n_pairs} same-speaker pairs, fewer than "
+                             f"the {dp}-way data axis needs; start fewer processes or add data")
         if not self._clamp_logged:
             logging_func(f"batch_size {bs} > {n_pairs} available pairs; "
-                         f"training with batch {n_pairs}")
+                         f"training with batch {eff}")
             self._clamp_logged = True
-        return n_pairs
+        return eff
+
+    def _check_same_batch(self, *arrays) -> None:
+        """Under a mesh every rank must walk the same pairing (a seeded
+        dataset): compare a position-weighted sum of the host batch's rows
+        across the ranks, one all-reduce, and refuse a batch they differ on."""
+        c = sum(float(np.asarray(a, np.float64).reshape(len(a), -1).sum(1)
+                      @ np.arange(1, len(a) + 1)) for a in arrays)
+        t = torch.tensor([c, -c], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        if t[0].item() != -t[1].item():
+            raise RuntimeError("the ranks walked different batches: under a mesh the "
+                               "dataset must be seeded alike on every rank")
 
     def train_epoch(self, dataset, epoch: int) -> dict[str, float]:
         """One pass over the paired dataset; returns the summed loss terms
@@ -281,8 +399,14 @@ class Trainer:
         totals = torch.zeros(len(keys), dtype=torch.float64, device=self.device)
         n_batches = 0
         for x1, x2, spk in prefetch(dataset.batches(self._effective_batch_size(dataset))):
-            spk = torch.from_numpy(np.asarray(spk, np.int64)).to(self.device)
-            terms = self.step_on(self._to_device(x1), self._to_device(x2), spk)
+            if self.mesh is None:
+                spk = torch.from_numpy(np.asarray(spk, np.int64)).to(self.device)
+                x1, x2 = self._to_device(x1), self._to_device(x2)
+            else:  # every rank walked the same batch: keep this rank's rows
+                if n_batches == 0:
+                    self._check_same_batch(x1, x2, spk)
+                x1, x2, spk = shard_batch((x1, x2, np.asarray(spk, np.int64)), self.mesh)
+            terms = self.step_on(x1, x2, spk)
             totals += torch.stack([*terms, *self.adv_metrics.values()]).to(torch.float64)
             n_batches += 1
         dataset.shuffle_data()  # re-pair utterances (reference :96)
@@ -363,7 +487,6 @@ class Trainer:
         Returns the checkpoint's epoch."""
         from dvc_tpu_torch.utils.plotting import save_mel_png
         epoch = self.load_last() - 1
-        os.makedirs(estimation_dir, exist_ok=True)
         x1, x2, _ = next(iter(dataset.batches(self._effective_batch_size(dataset),
                                               shuffle=False)))
         gen = torch.Generator(device=self.device).manual_seed(0)
@@ -374,6 +497,9 @@ class Trainer:
         finally:
             self.model.train()
         recons_x1 = outs[2].cpu().numpy()
+        if not is_primary():  # every rank ran the forward; rank 0 writes
+            return epoch
+        os.makedirs(estimation_dir, exist_ok=True)
         failures = 0
         for i in range(min(n_images, len(x1))):
             # one bad PNG (matplotlib backend, disk) must not stop the rest
@@ -393,7 +519,7 @@ class Trainer:
         return epoch
 
     def _get_writer(self):
-        if self._writer is None and self.logs_path:
+        if self._writer is None and self.logs_path and is_primary():
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:  # no tensorboard package: no writer, as dvc_tpu

@@ -15,7 +15,9 @@ import torch
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``device`` as a torch.device; raises if it names cuda and no card is
-    visible."""
+    visible.  A bare "cuda" becomes this thread's current card, by index:
+    under torchrun that is the rank's card, and a worker thread (whose
+    current card is card 0) then uses the same one."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -23,6 +25,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

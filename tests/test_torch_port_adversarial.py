@@ -186,8 +186,8 @@ def test_zscore_population_std(monkeypatch):
     v, a_params, _, _, _, wm = _jax_adv_step("confusion", x1, x2, eps)
     _, _, _, gm = _port_adv_step(v, a_params, "confusion", x1, x2, eps)
     np.testing.assert_allclose(gm["adv_ce"].item(), float(wm["adv_ce"]), rtol=TERM_RTOL)
-    monkeypatch.setattr(adversarial, "zscore", lambda z: (z - z.mean(0, keepdim=True))
-                        / (z.std(0, keepdim=True) + 1e-5))
+    monkeypatch.setattr(adversarial, "zscore", lambda z, group=None:
+                        (z - z.mean(0, keepdim=True)) / (z.std(0, keepdim=True) + 1e-5))
     _, _, _, bad = _port_adv_step(v, a_params, "confusion", x1, x2, eps)
     err = abs(bad["adv_ce"].item() - float(wm["adv_ce"])) / float(wm["adv_ce"])
     assert err > 10 * TERM_RTOL, err

@@ -14,6 +14,7 @@ from dvc_tpu.models import long_context as jlc
 from dvc_tpu_torch.config import Config, VAEConfig
 from dvc_tpu_torch.convert import conversion
 from dvc_tpu_torch.models import long_context as lc
+from dvc_tpu_torch.parallel.mesh import Mesh
 from test_torch_port_vae import ATOL, FULL_ATOL, FULL_RTOL, RTOL, SMALL, pair  # noqa: F401
 
 F = SMALL["frames"]
@@ -81,7 +82,9 @@ def test_convert_mel_long_context(pair):
 
 def test_refused_combinations(pair, tmp_path):
     """--long_context with --fs_mask and with --profile_transfer raise
-    dvc_tpu's ValueErrors; the mesh variant is not ported yet."""
+    dvc_tpu's ValueErrors; so does a mesh whose size does not divide the
+    padded frame count (the frame-sharded encode itself is held to dvc_tpu
+    on four ranks by test_torch_port_sequence_parallel.py)."""
     _, _, pm = pair
     for spk in ("p1", "p2"):
         (tmp_path / spk).mkdir()
@@ -95,5 +98,6 @@ def test_refused_combinations(pair, tmp_path):
         conversion.VoiceConverter(cfg, None, long_context=True, profile_transfer=True
                                   ).convert_speaker_pair(str(tmp_path), "p1", "p2",
                                                          str(tmp_path / "gen"), 1)
-    with pytest.raises(NotImplementedError, match="mesh.*not yet ported"):
-        lc.whole_utterance_encode(CFG, pm, np.zeros((1, 80, F), np.float32), mesh=object())
+    three = Mesh(("data", "model"), 3, 1, 0, 0, None, None, None, torch.device("cpu"))
+    with pytest.raises(ValueError, match="must divide the 3-device mesh"):
+        lc.whole_utterance_encode(CFG, pm, np.zeros((1, 80, F), np.float32), mesh=three)
