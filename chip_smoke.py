@@ -26,11 +26,16 @@ Phases; any failure exits non-zero before a result line is printed:
             CUDA vocoder, and 3 concurrent POST /convert of 0.5 s wavs; the
             VAE on the card against the same VAE on the CPU;
   4. shapes the kernel against its plain version at the shapes the main path
-            gave it, bf16 weights over all its steps and float32 over the
-            first F32_MAIN_STEPS (the plain sampler's depth cut to keep the
-            script's time) at the limits above (every block's draws equal;
-            the timed call's output is the one compared, and equals the
-            check run's), timed with CUDA events;
+            gave it, at the limits above: the closed-loop plain sampler on
+            the first F32_MAIN_STEPS steps (its depth cut to keep the
+            script's time), float32 over those steps and bf16 over all its
+            steps, whose first F32_MAIN_STEPS equal a run on those alone;
+            every step of both against the plain function teacher-forced on
+            the kernel's own samples (every block's draws equal; the timed
+            call's output is the one compared, and equals the check run's);
+            timed with CUDA events, kernel and plain on the same steps for
+            the kernels line (which gives each entry's steps), the bf16
+            kernel over all its steps too;
   5. plan    each dtype's block plan (blocks, rows a block, row tile,
             resident layers and bytes) and the barrier floor; us per sample
             step for bf16 and int8 at B in {1, 3, 4, 8}, beside the per-launch
@@ -220,13 +225,26 @@ Phases; any failure exits non-zero before a result line is printed:
             with two cards or more, two NCCL ranks (chip_smoke.py
             --parallel-rank) running the full-width VAE step sharded dp 2
             (ZeRO) and mp 2 (tensor parallel) in float64 (phase 8's
-            gradient limit), and the halo conv, against one process, then
-            `train` through torchrun on two cards against one process
-            (epoch losses, rank 0's checkpoints); with one card it says
-            so.
+            gradient limit), and the halo conv, against one process, each
+            state then saved as an orbax checkpoint (each rank its own
+            store) and gathered into a msgpack, the two read back equal in
+            one process, then `train` through torchrun on two cards against
+            one process (epoch losses, rank 0's checkpoints); with one card
+            it says so.
+ 16. orbax  dvc_tpu's orbax checkpoints and the device D4C (no hand kernel:
+            dvc_tpu reaches no pl.pallas_call there): (i) Trainer at the
+            full VAEConfig, batch 8, one epoch on phase 8's corpus, its
+            orbax save (Trainer.save) read back bit-equal to its state, the
+            save, the orbax write and the read timed, the bytes on disk;
+            (ii) an orbax resume and a msgpack resume of that state, each
+            one more epoch (cuDNN deterministic), losses equal within 1e-6;
+            (iii) d4c_batch on phase 10's 48 wavs at 16 kHz on the card,
+            timed, against the CPU on every fourth wav (voiced frames 2e-4,
+            the rest 1 within 1e-6), and world_decompose_batch(keep_sp_ap=
+            True) on 8 wavs.
 Each phase prints its seconds.  The lines before the last report the card
 (nvidia-smi name and power limit), timings and one JSON line of kernels
-(phases 8-15 add none); the last line is
+(phases 8-16 add none); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -263,10 +281,10 @@ BF16_ATOL = 0.05   # bf16 roundings of h, the gate and the skip flip by one ulp
                    # any other small change: float32 is the fine check
 TRAJ_STD = 0.05    # the doctored trajectory's spread, set by doctor_head and
                    # required at T = 1024, start-up transient included
-F32_MAIN_STEPS = 4096  # phase 4's float32 check and phase 6 (v)'s plain sampler: the first
-                       # steps of the main path's cond (the sampler is causal, so they are
-                       # the full run's first steps)
-MAIN_STD = 0.02    # required over the main path's 16,384 steps, where the
+F32_MAIN_STEPS = 4096  # phase 4's plain samplers and phase 6 (v)'s: the first steps of the
+                       # main path's cond (the sampler is causal, so they are the full
+                       # run's first steps)
+MAIN_STD = 0.02    # required over the main path's first 4,096 steps, where the
                    # steady trajectory, which moves less, dominates
 INT8_FINE_ATOL = 6e-3  # int8 kernel vs plain at the narrow width, feedback cut:
                        # about twice the error measured, under the error of a
@@ -3003,7 +3021,10 @@ def parallel_rank(rank: int, work: str) -> int:
     inputs and noise drawn under that default dtype: the float32 gradients
     are too ill-conditioned for a tight check, phase 12), and the halo conv
     over the frames; rank 0 holds each against the one-process result and
-    writes the errors to <dir>/result.json."""
+    writes the errors to <dir>/result.json.  After each step the state is
+    saved twice (phase 16's two-card part): as an orbax checkpoint, each
+    rank writing its own store, and gathered into a msgpack; rank 0 reads
+    both back in one process and compares them."""
     import datetime
     import torch.distributed as dist
     from dvc_tpu_torch.config import Config, MeshConfig, TrainConfig
@@ -3019,7 +3040,7 @@ def parallel_rank(rank: int, work: str) -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.RandomState(18)
     x1, x2 = (rng.rand(TRAIN_BATCH, 80, BENCH_FRAMES).astype(np.float32) for _ in range(2))
-    out = {"cards": [torch.cuda.get_device_name(dev)]}
+    out = {"cards": [torch.cuda.get_device_name(dev)], "orbax": {}}
     for mp, dt in ((1, torch.float64), (2, torch.float64)):
         cfg = Config(train=TrainConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="float32"),
                      mesh=MeshConfig(model_parallel=mp))
@@ -3043,6 +3064,7 @@ def parallel_rank(rank: int, work: str) -> int:
                                     for a, b in zip(want, terms)),
                     "grad_err": ge, "bias_share": bs}
                 del one
+            out["orbax"][f"dp{tr.mesh.dp} x mp{tr.mesh.mp}"] = sharded_save_check(tr, rank, work)
             del tr
         finally:
             torch.set_default_dtype(torch.float32)
@@ -3062,6 +3084,33 @@ def parallel_rank(rank: int, work: str) -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def sharded_save_check(tr, rank: int, work: str) -> dict | None:
+    """Trainer ``tr`` (a two-rank mesh) saved as a sharded orbax checkpoint
+    (every rank its own ocdbt.process_<rank>/ store) and as the gathered
+    msgpack; on rank 0 (None elsewhere) whether the two read back equal in
+    one process, and each process store's key count."""
+    from dvc_tpu_torch.train import checkpoint as ckpt
+    from dvc_tpu_torch.utils import ocdbt
+    tag = f"dp{tr.mesh.dp}mp{tr.mesh.mp}"
+    tr.step = 1
+    paths = {}
+    t0 = time.perf_counter()
+    for fmt in ("orbax", "msgpack"):
+        tr.cfg = tr.cfg.replace(train=dataclasses.replace(tr.cfg.train, checkpoint_format=fmt))
+        tr.checkpoints_path = os.path.join(work, f"{tag}_{fmt}")
+        tr.save(1)
+        paths[fmt] = os.path.join(tr.checkpoints_path, f"{ckpt.RUN_NAME}_1.{fmt}")
+        if fmt == "orbax":
+            sharded_s = time.perf_counter() - t0
+    if rank != 0:
+        return None
+    stores = [len(ocdbt.read_entries(os.path.join(paths["orbax"], f"ocdbt.process_{r}")))
+              for r in range(2)]
+    return {"equal": trees_equal(ckpt.read_train_state(paths["orbax"]),
+                                 ckpt.read_train_state(paths["msgpack"])),
+            "stores": stores, "sharded_s": sharded_s}
 
 
 def two_card_check(card, work):
@@ -3089,6 +3138,12 @@ def two_card_check(card, work):
     with open(os.path.join(work, "result.json")) as f:
         res = json.load(f)
     failed = []
+    for key, e in res.pop("orbax").items():
+        print(f"two-card orbax save [{card}] {key}: each rank wrote its own store "
+              f"({e['stores']} keys) in {e['sharded_s']:.2f} s; read back in one process, "
+              f"equal to the gathered msgpack state: {e['equal']}", flush=True)
+        if not (e["equal"] and min(e["stores"]) > 0):
+            failed.append(f"orbax {key}")
     for key, e in res.items():
         if not isinstance(e, dict):
             continue
@@ -3169,6 +3224,176 @@ def parallel_phase(card, dev):
             print(f"two-card check [{card}]: not run, {torch.cuda.device_count()} card visible",
                   flush=True)
     return timing
+
+
+D4C_VOICED_ATOL = 2e-4   # phase 16 (iii): d4c_batch card against CPU on voiced frames
+                         # (1.3e-6 on the first run), test_d4c_tpu.py:121's limit; the gate
+                         # that tests/test_torch_port_d4c.py holds the port to against
+                         # dvc_tpu is 0.01, where two FFT implementations differ in the group
+                         # delay's spectral valleys; unvoiced and padded frames 1 within
+D4C_ONE_ATOL = 1e-6      # D4C_ONE_ATOL
+D4C_CPU_EVERY = 4        # phase 16 (iii): the CPU's D4C on every 4th wav (12 of 48: all 48
+                         # took 28.2 s of the phase on the card's host)
+RESUME_LOSS_RTOL = 1e-6  # phase 16 (ii): the epoch after an orbax resume against the epoch
+                         # after a msgpack resume of the same state (cuDNN deterministic)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def flat_tree(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_tree(v, prefix + (k,)) if isinstance(v, dict)
+                   else {prefix + (k,): np.asarray(v)})
+    return out
+
+
+def trees_equal(a, b) -> bool:
+    fa, fb = flat_tree(a), flat_tree(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def orbax_d4c_phase(card, dev, mel8, recipe):
+    """Phase 16: dvc_tpu's orbax checkpoints (utils/orbax.py over
+    utils/ocdbt.py and native/dvc_zstd.cpp) at full width on the card, and
+    the device D4C (ops/d4c.py).  No hand kernel: nothing here reaches
+    pl.pallas_call in dvc_tpu."""
+    import glob
+    from dvc_tpu_torch.config import Config, TrainConfig
+    from dvc_tpu_torch.data.dataset import PairedMelDataset
+    from dvc_tpu_torch.ops.audio import resample_poly
+    from dvc_tpu_torch.ops.d4c import d4c_batch
+    from dvc_tpu_torch.ops.harvest import harvest_batch
+    from dvc_tpu_torch.ops.world import world_decompose_batch
+    from dvc_tpu_torch.train import checkpoint as ckpt
+    from dvc_tpu_torch.train.trainer import Trainer
+    from dvc_tpu_torch.utils.orbax import read_orbax_state, write_orbax_state
+    from dvc_tpu_torch.utils.wavio import read_wav
+    run = ckpt.RUN_NAME
+    cfg = Config(train=TrainConfig(batch_size=TRAIN_BATCH, seed=SEED, compute_dtype="float32",
+                                   checkpoint_format="orbax"))
+
+    def dataset():
+        return PairedMelDataset(mel8, samples_length=cfg.vae.frames, seed=SEED)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as work:
+        # (i) the trainer at full width, batch 8, a few steps; its orbax save
+        # (Trainer.save, as train --checkpoint-format orbax saves) read back
+        # equals its state bit for bit
+        ck = os.path.join(work, "orbax")
+        tr = Trainer(cfg, checkpoints_path=ck, device=dev)
+        hist = tr.run_training(dataset(), 1, report_interval=2, logging_func=lambda m: None)
+        t0 = time.perf_counter()
+        tr.save(1)
+        save_s = time.perf_counter() - t0
+        path = os.path.join(ck, f"{run}_1.orbax")
+        check(os.path.isdir(path) and math.isfinite(hist[0]["total"]), f"no store: {hist}")
+        t0 = time.perf_counter()
+        want = ckpt.train_state_tree(tr.model, tr.optimizer, tr.step)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_orbax_state(os.path.join(work, "timed.orbax"), want)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = read_orbax_state(path)
+        read_s = time.perf_counter() - t0
+        n_bytes = dir_bytes(path)
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        equal = trees_equal(got, want)
+        print(f"orbax save/load [{card}] full-width TrainState ({n_params} parameters, step "
+              f"{tr.step}): {n_bytes} bytes on disk; Trainer.save {save_s:.3f} s (the .orbax, "
+              f"then the .opt.pth/.pth pair), of it the tree off the card {tree_s:.3f} s and "
+              f"the orbax write {write_s:.3f} s; read {read_s:.3f} s (host disk, warm); read "
+              f"back bit-equal to the trainer's state: {equal}", flush=True)
+        check(equal, "the orbax store read back differs from the trainer's state")
+
+        # (ii) resume: the epoch after an orbax resume against the epoch after a
+        # msgpack resume of the same state (the .pth pairs removed, so each
+        # format's own tree is what is read)
+        mk = os.path.join(work, "msgpack")
+        ckpt.save_checkpoint(mk, run, 1, tr.model, tr.optimizer, tr.step, fmt="msgpack")
+        for d in (ck, mk):
+            for f in glob.glob(os.path.join(d, f"{run}_1*.pth")):
+                os.remove(f)
+        state = {n: v.detach().cpu() for n, v in tr.model.state_dict().items()}
+        del tr
+        losses = {}
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for fmt, d in (("orbax", ck), ("msgpack", mk)):
+                c = cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_format=fmt))
+                again = Trainer(c, checkpoints_path=d, device=dev)
+                check(again.load_last() == 2, f"{fmt} resume is not at epoch 2")
+                loaded = again.model.state_dict()
+                check(all(n.endswith("num_batches_tracked") or torch.equal(
+                    loaded[n].cpu(), state[n]) for n in state), f"{fmt} resume differs")
+                losses[fmt] = [h["total"] for h in again.run_training(
+                    dataset(), 1, report_interval=3, logging_func=lambda m: None)]
+                del again
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        err = abs(losses["orbax"][0] - losses["msgpack"][0]) / abs(losses["msgpack"][0])
+        print(f"orbax resume [{card}]: epoch 2 loss {losses['orbax']} against a msgpack "
+              f"resume's {losses['msgpack']}, rel err {err:.3e} (limit {RESUME_LOSS_RTOL}); "
+              f"both resumed the trainer's weights bit for bit", flush=True)
+        check(err <= RESUME_LOSS_RTOL, f"orbax resume's losses differ: {losses}")
+        torch.cuda.empty_cache()
+
+    # (iii) d4c_batch on the recipe's 48 wavs (resampled to 16 kHz), card
+    # against CPU; world_decompose_batch(keep_sp_ap=True) once
+    fs = 16000
+    wavs = []
+    wav16 = os.path.join(recipe, "vctk", "VCTK-Corpus", "wav16")
+    for f in sorted(glob.glob(os.path.join(wav16, "*", "*.wav"))):
+        w, sr = read_wav(f)
+        wavs.append(resample_poly(torch.from_numpy(w).to(dev), sr, fs).cpu().numpy())
+    check(len(wavs) == 48, f"recipe wavs: {len(wavs)}")
+    n = max(len(w) for w in wavs)
+    batch = np.zeros((len(wavs), n), np.float32)
+    for i, w in enumerate(wavs):
+        batch[i, :len(w)] = w
+    batch_d = torch.from_numpy(batch).to(dev)
+    frames = n // 80 + 1
+    f0 = harvest_batch(batch_d, [len(w) for w in wavs], fs, 5.0)
+    f0 = torch.nn.functional.pad(f0, (0, max(0, frames - f0.shape[-1])))[:, :frames]
+    d4c_batch(batch_d[:2], f0[:2], fs, device=dev)  # first call: cuFFT plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ap = d4c_batch(batch_d, f0, fs, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    rows = slice(0, None, D4C_CPU_EVERY)
+    t0 = time.perf_counter()
+    ap_cpu = d4c_batch(batch[rows], f0[rows].cpu(), fs, device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    ap, f0h = ap.cpu().numpy(), f0.cpu().numpy()
+    voiced = f0h[rows] >= 47.0
+    err = float(np.abs(ap[rows] - ap_cpu)[voiced].max())
+    one = float(np.abs(ap[f0h < 47.0] - 1.0).max())
+    audio_s = sum(len(w) for w in wavs) / fs
+    print(f"d4c_batch [{card}] {len(wavs)} wavs, {audio_s:.1f} s of audio padded to "
+          f"({len(wavs)}, {n}), {frames} frames each: {card_s:.3f} s on the card "
+          f"({audio_s / card_s:.1f} s of audio a second); every {D4C_CPU_EVERY}th wav on the "
+          f"CPU in {cpu_s:.2f} s, card against CPU on its voiced frames {err:.3e} (limit "
+          f"{D4C_VOICED_ATOL}); unvoiced and padded frames within {one:.1e} of 1 (limit "
+          f"{D4C_ONE_ATOL})", flush=True)
+    check(err <= D4C_VOICED_ATOL, f"card d4c differs from the CPU's: {err}")
+    check(one <= D4C_ONE_ATOL, f"unvoiced frames are not fully aperiodic: {one}")
+    t0 = time.perf_counter()
+    res = world_decompose_batch(wavs[:8], fs, keep_sp_ap=True, device=dev)
+    wd_s = time.perf_counter() - t0
+    ok = all(sp is not None and ap_ is not None and sp.shape == ap_.shape == (len(f0_), 513)
+             and np.isfinite(sp).all() and (ap_ >= 0.001).all() and (ap_ < 1.0).all()
+             for f0_, _, sp, ap_, _ in res)
+    print(f"world_decompose_batch(keep_sp_ap=True) [{card}] 8 wavs: {wd_s:.2f} s, sp and ap "
+          f"of every frame, finite and in range: {ok}", flush=True)
+    check(ok, "world_decompose_batch(keep_sp_ap=True) returned no sp/ap or out of range")
+    return {"save_s": save_s, "read_s": read_s, "bytes": n_bytes,
+            "d4c_audio_per_s": audio_s / card_s}
 
 
 def main() -> int:
@@ -3391,29 +3616,47 @@ def main() -> int:
     with torch.inference_mode():
         cond = det.upsample(frames).contiguous()
     # float32 first (the fine check), then bf16: the main path's weights,
-    # whose numbers go into the report
+    # whose numbers go into the report.  The closed-loop plain sampler runs
+    # the first F32_MAIN_STEPS steps (its depth cut to keep the script's
+    # time; the sampler is causal, so they are the full run's first steps),
+    # and the kernels line times the kernel on the same steps; every step of
+    # the bf16 kernel's full run is held to the plain function teacher-forced
+    # on the kernel's own samples (wavenet_open_loop_plain with feedback).
     full_cond = cond
+    head = full_cond[:, :F32_MAIN_STEPS].contiguous()
     for dtype, atol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
-        cond = (full_cond[:, :F32_MAIN_STEPS].contiguous() if dtype == torch.float32
-                else full_cond)
+        cond = head if dtype == torch.float32 else full_cond
         packed = ws.pack_wavenet_params(det, dtype, dev)
         checked, draws, _ = ws.wavenet_generate_checked(packed, cond, 0, True)
         check(bool((draws == checked[None]).all()), f"{dtype}: the blocks' draws disagree")
         kern, k_ms = events_ms(lambda: ws.wavenet_generate(packed, cond, 0, True))
         check(torch.equal(kern, checked), f"{dtype}: the timed call differs from the checked one")
-        plain, p_ms = events_ms(lambda: ws.wavenet_generate_plain(packed, cond, 0, True))
-        err = (kern - plain).abs().max().item()
-        b_ms, b_by = bound(packed, cond)
+        kern_h, kh_ms = events_ms(lambda: ws.wavenet_generate(packed, head, 0, True))
+        check(torch.equal(kern_h, kern[:, :F32_MAIN_STEPS]),
+              f"{dtype}: the kernel's first steps differ between the head and the full run")
+        plain, p_ms = events_ms(lambda: ws.wavenet_generate_plain(packed, head, 0, True))
+        err = (kern_h - plain).abs().max().item()
+        forced, f_ms = events_ms(lambda: ws.wavenet_open_loop_plain(packed, cond, kern))
+        f_err = (kern - forced).abs().max().item()
+        b_ms, b_by = bound(packed, head)
         name = str(dtype).replace("torch.", "")
         print(f"kernel at main-path shapes [{card}] cond {tuple(cond.shape)} {name}: "
-              f"{k_ms:.1f} ms ({k_ms * 1e3 / cond.shape[1]:.1f} us/sample-step), plain "
-              f"{p_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), max_abs_err {err:.3e} "
-              f"(atol {atol}); trajectory std {plain.std().item():.4f}", flush=True)
+              f"{k_ms:.1f} ms ({k_ms * 1e3 / cond.shape[1]:.1f} us/sample-step); its first "
+              f"{F32_MAIN_STEPS} steps: kernel {kh_ms:.1f} ms, plain {p_ms:.1f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}), max_abs_err {err:.3e} (atol {atol}); every step "
+              f"against the plain function teacher-forced on the kernel's samples "
+              f"({f_ms:.1f} ms): max_abs_err {f_err:.3e} (atol {atol}); trajectory std "
+              f"{plain.std().item():.4f}", flush=True)
         check(math.isfinite(err) and err <= atol, f"main-shape {name} kernel vs plain {err}")
+        check(math.isfinite(f_err) and f_err <= atol,
+              f"main-shape {name} kernel vs teacher-forced plain {f_err}")
         check(plain.std().item() > MAIN_STD, "doctored trajectory does not move")
+        del forced
     tmp.cleanup()
-    k1 = {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-          "bound_ms": b_ms, "bound_by": b_by}  # bf16: the main path's weights
+    k1 = {"launches": launches, "max_abs_err": err, "ms": kh_ms, "plain_ms": p_ms,
+          "bound_ms": b_ms, "bound_by": b_by, "steps": F32_MAIN_STEPS,
+          "full_steps": full_cond.shape[1], "full_ms": k_ms,
+          "forced_max_abs_err": f_err}  # bf16: the main path's weights
 
     phase_done(4)
 
@@ -3631,7 +3874,8 @@ def main() -> int:
             f"{tuple(mels.shape)} mel frames", steps)
 
     k3 = {"launches": launches8, "max_abs_err": err8, "ms": k8_ms, "plain_ms": p8_ms,
-          "bound_ms": b8_ms, "bound_by": b8_by}
+          "bound_ms": b8_ms, "bound_by": b8_by, "steps": F32_MAIN_STEPS,
+          "full_steps": cond.shape[1], "full_ms": k8_full_ms}
 
     phase_done(6)
 
@@ -3663,8 +3907,6 @@ def main() -> int:
 
     # 14. the WORLD route, on phase 10's corpus
     world_phase(card, dev, recipe.name)
-    recipe.cleanup()
-    work.cleanup()
     phase_done(14)
 
     # 15. the mesh layer: a one-rank NCCL group, and two cards where there are
@@ -3672,6 +3914,12 @@ def main() -> int:
     print(f"mesh step against phase 8's plain step [{card}]: {parallel['mesh_ms']:.2f} ms "
           f"(phase 8: {plain8['ms']:.2f} ms)", flush=True)
     phase_done(15)
+
+    # 16. orbax checkpoints and the device D4C, on phases 8 and 10's corpora
+    orbax_d4c_phase(card, dev, mel8, recipe.name)
+    recipe.cleanup()
+    work.cleanup()
+    phase_done(16)
 
     def probe_entry(name, src, replaces, kind, main_key):
         """One report entry per probe kernel: the times of main_key's

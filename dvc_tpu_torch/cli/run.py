@@ -82,9 +82,10 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
                    help="bfloat16 rounds the training inputs to bf16 and computes "
                         "in float32, as dvc_tpu does; serving is float32")
     p.add_argument("--checkpoint-format", default="msgpack", choices=["msgpack", "orbax"],
-                   help="msgpack: dvc_tpu's TrainState .msgpack, with the reference's "
-                        ".pth state dict and an .opt.pth beside it; orbax is not "
-                        "ported yet")
+                   help="msgpack: dvc_tpu's TrainState .msgpack; orbax: its .orbax "
+                        "directory (under torchrun each rank writes its own shards); "
+                        "a one-process save also writes the reference's .pth state "
+                        "dict and an .opt.pth beside it")
     p.add_argument("--features", default="mel", choices=["mel", "mcc"])
     p.add_argument("--num_mcep", type=int, default=36)
     p.add_argument("--do-not-resume", action="store_true")

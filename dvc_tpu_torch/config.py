@@ -10,8 +10,8 @@ Some fields are records only, read by nothing in the port:
 ``gin_channels`` and ``weight_normalization`` (as in dvc_tpu),
 ``donate_state`` (there is no jit to donate to).  MeshConfig lays the
 train mesh over the ranks of a process group (parallel/mesh.py).
-``checkpoint_format="orbax"`` is kept so a dvc_tpu config reads the same,
-but the trainer refuses it as not yet ported.
+``checkpoint_format="orbax"`` writes dvc_tpu's sharded orbax checkpoint
+(train/checkpoint.py), read and written without orbax.
 """
 
 from __future__ import annotations
@@ -117,7 +117,7 @@ class TrainConfig:
     compute_dtype: str = "bfloat16"
     donate_state: bool = True         # a record: there is no jit to donate to
     remat: bool = False               # recompute the pair forward in the backward
-    checkpoint_format: str = "msgpack"  # .msgpack beside .pth; "orbax" not yet ported
+    checkpoint_format: str = "msgpack"  # or "orbax"; either beside .pth
 
 
 @dataclass(frozen=True)
@@ -222,3 +222,30 @@ class Config:
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def training_preset() -> Config:
+    """Hyperparameters of the canonical training run (reference
+    training.sh:1-13: 200k epochs, bs=8, lr=1e-4, latent 32, speaker 4,
+    64-frame samples): the defaults."""
+    return Config()
+
+
+@dataclass(frozen=True)
+class ConversionSpec:
+    """The conversion run's identity (reference conversion.sh:2-3,13-14)."""
+
+    src_spk: str
+    trg_spk: str
+    num_utterances: int = 2  # the reference converts the first 2 sorted utts
+                             # (variational_base_vae.py:264)
+
+
+def conversion_preset(src_spk: str = "VCTK-Corpus_wav16_p225",
+                      trg_spk: str = "VCTK-Corpus_wav16_p226"
+                      ) -> tuple[Config, ConversionSpec]:
+    """Conversion-time settings (reference conversion.sh:1-14).  The Config
+    is the training preset: conversion.sh passes --samples_length=128, but
+    the reference's chunking_mel hardcodes 64-frame chunks
+    (variational_base_vae.py:337) and the VAE takes no other length."""
+    return Config(), ConversionSpec(src_spk, trg_spk)

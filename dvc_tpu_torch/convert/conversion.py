@@ -122,6 +122,21 @@ def speaker_mel_profile(mel_fps, max_utterances: int = 32) -> np.ndarray:
     return np.mean(profs, axis=0)
 
 
+def content_sensitivity(outputs, sources) -> float:
+    """How much of the source's utterance-to-utterance variation survives a
+    conversion (dvc_tpu/convert/conversion.py:183-204): mean|f(u0) - f(u1)|
+    over mean|src_u0 - src_u1| for a pair of same-speaker utterances
+    converted to one target, each pair cropped to its shorter length.
+    1.0: content kept whole (profile_transfer_mel scores exactly 1 on
+    mels); 0.0: the output ignores its source."""
+    (o0, o1), (s0, s1) = outputs, sources
+    o0, o1, s0, s1 = (np.asarray(x) for x in (o0, o1, s0, s1))
+    t = min(o0.shape[-1], o1.shape[-1])
+    ts = min(s0.shape[-1], s1.shape[-1])
+    denom = float(np.mean(np.abs(s0[..., :ts] - s1[..., :ts])))
+    return float(np.mean(np.abs(o0[..., :t] - o1[..., :t]))) / max(denom, 1e-9)
+
+
 @dataclass
 class VoiceConverter:
     """Directory-level runner mirroring voice_conversion_mel's file handling:

@@ -70,12 +70,17 @@ class BatchedMelExtractor:
 
     backend="torch" runs ops/mel.melspectrogram on ``device``, one batch per
     bucket; backend="native" uses the port's C++ engine (native/dvc_dsp.cpp)
-    on a host thread pool, for when the device is busy training.
+    on a host thread pool, for when the device is busy training;
+    backend="auto" takes the native engine for fewer than ``AUTO_NATIVE_BELOW``
+    wavs (no device round trip) and the device from there on, as dvc_tpu's
+    (the engine must build: a failed build raises, nothing falls back).
     """
+
+    AUTO_NATIVE_BELOW = 64
 
     def __init__(self, cfg: AudioConfig = AudioConfig(), batch_size: int = 16,
                  backend: str = "torch", device: str | torch.device = "cuda"):
-        if backend not in ("torch", "native"):
+        if backend not in ("torch", "native", "auto"):
             raise ValueError(f"unknown mel backend {backend!r}")
         self.cfg = cfg
         self.batch_size = batch_size
@@ -87,7 +92,10 @@ class BatchedMelExtractor:
         if not wavs:
             return []
         c = self.cfg
-        if self.backend == "native":
+        backend = self.backend
+        if backend == "auto":
+            backend = "native" if len(wavs) < self.AUTO_NATIVE_BELOW else "torch"
+        if backend == "native":
             from dvc_tpu_torch import native
             return native.melspectrogram_batch(
                 wavs, sample_rate=c.sample_rate, fft_size=c.fft_size,

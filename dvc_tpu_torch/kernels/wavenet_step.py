@@ -25,9 +25,9 @@ are described there); this module holds
     raises; a CPU tensor runs the plain version;
   * ``wavenet_generate_plain`` — the same arithmetic in PyTorch, cast for
     cast, ring for ring;
-  * ``wavenet_open_loop_plain`` — its deterministic function for a pack
-    with the output feedback cut, over all steps at once (for checks at
-    long T);
+  * ``wavenet_open_loop_plain`` — its deterministic function over all
+    steps at once, for a pack with the output feedback cut or teacher-forced
+    on given samples (for checks at long T);
   * ``mol_sample`` — a launch of the kernel's MoL sampler alone over given
     MoL parameters (the check of K2 against ``sample_from_mol``).
 
@@ -383,15 +383,23 @@ def wavenet_generate_plain(packed: dict, cond: torch.Tensor, seed: int = 0,
 
 
 @torch.no_grad()
-def wavenet_open_loop_plain(packed: dict, cond: torch.Tensor) -> torch.Tensor:
+def wavenet_open_loop_plain(packed: dict, cond: torch.Tensor,
+                            feedback: torch.Tensor | None = None) -> torch.Tensor:
     """wavenet_generate_plain(packed, cond, deterministic=True) for a pack
     whose w_first is zero, so that no sample is fed back: every step's input
     h is b_first, and each layer runs over all B x T steps at once, its ring
     taps being its own input h shifted by d and 2d steps (zero before the
     first step).  The same casts and sums as the step loop; only the row
     count of each product differs.  A reference for checks at long T, where
-    the step loop takes minutes."""
-    if bool(packed["w_first"].any()):
+    the step loop takes minutes.
+
+    With ``feedback`` (B, T), any pack: step t's input h is feedback[:, t - 1]
+    (0 at t = 0) through w_first and b_first, as the step loop feeds back its
+    own sample, so the result is the step loop teacher-forced on those
+    samples.  Given the step loop's output it returns that output; given a
+    kernel's, it returns what the step loop draws after the kernel's history
+    at every step."""
+    if feedback is None and bool(packed["w_first"].any()):
         raise ValueError("the output feedback is not cut: w_first is not zero")
     cfg: VocoderConfig = packed["cfg"]
     L, R, G, S, C, K = _dims(packed)
@@ -403,7 +411,13 @@ def wavenet_open_loop_plain(packed: dict, cond: torch.Tensor) -> torch.Tensor:
     b_in, b_so = packed["b_in"], packed["b_so"]
     scale = SQRT_HALF if cfg.legacy else 1.0
     c = cond.to(adt)
-    h = packed["b_first"].expand(b, t_total, R)
+    if feedback is None:
+        h = packed["b_first"].expand(b, t_total, R)
+    else:
+        if feedback.shape != (b, t_total):
+            raise ValueError(f"feedback {tuple(feedback.shape)} is not (B, T) = {(b, t_total)}")
+        x = F.pad(feedback.float()[:, :-1], (1, 0))
+        h = x[..., None] * packed["w_first"] + packed["b_first"]
     skip = None
     for li, d in enumerate(packed["dil"].tolist()):
         hq = h.to(adt)

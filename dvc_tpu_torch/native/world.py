@@ -7,8 +7,9 @@ preprocessing/WORLD_processing.py:33-35), implemented from the published
 Morise papers, and synthesize() is the WORLD-faithful synthesizer in the
 role of pyworld.synthesize (WORLD_processing.py:99-106).  Built into
 build/native/ at first use; a failed build raises (dvc_tpu falls back to a
-JAX NCCF tracker and its device synthesis then, with other numbers).  DIO
-is not bound: no command of dvc_tpu reaches it.
+JAX NCCF tracker and its device synthesis then, with other numbers).
+dio() is the DIO method behind pyworld.dio, the reference's pitch
+extractor (preprocessing/utils.py:183-192).
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dvc_harvest.restype = ctypes.c_int
     lib.dvc_harvest.argtypes = [_F, ctypes.c_long, ctypes.c_int, ctypes.c_double,
                                 ctypes.c_double, ctypes.c_double, _D]
+    lib.dvc_dio.restype = ctypes.c_int
+    lib.dvc_dio.argtypes = [_F, ctypes.c_long, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                            ctypes.c_double, ctypes.c_double, ctypes.c_double, _D]
     lib.dvc_d4c.restype = ctypes.c_int
     lib.dvc_d4c.argtypes = [_F, ctypes.c_long, ctypes.c_int, _D, ctypes.c_int,
                             ctypes.c_double, ctypes.c_int, ctypes.c_double, _D]
@@ -58,6 +62,31 @@ def harvest(wav: np.ndarray, fs: int, frame_period: float = 5.0,
                           f0_floor, f0_ceil, f0.ctypes.data_as(_D))
     if got != n_out:
         raise RuntimeError(f"native harvest failed ({got})")
+    timeaxis = np.arange(n_out, dtype=np.float64) * frame_period / 1000.0
+    return f0, timeaxis
+
+
+def dio(wav: np.ndarray, fs: int, frame_period: float = 5.0,
+        f0_floor: float = 71.0, f0_ceil: float = 800.0,
+        channels_in_octave: float = 2.0, allowed_range: float = 0.1
+        ) -> tuple[np.ndarray, np.ndarray]:
+    """(T,) waveform -> (f0, timeaxis), both (N,) float64 at frame_period ms:
+    DIO (pyworld.dio's defaults: 2 channels an octave, allowed range 0.1),
+    as dvc_tpu/native/world.py:88-118 binds it."""
+    lib = _lib()
+    if not (frame_period > 0.0 and 0.0 < f0_floor < f0_ceil
+            and channels_in_octave > 0.0 and allowed_range > 0.0):
+        raise RuntimeError(
+            f"invalid dio parameters: frame_period={frame_period}, "
+            f"f0 band [{f0_floor}, {f0_ceil}], cio={channels_in_octave}, "
+            f"allowed_range={allowed_range}")
+    wav = np.ascontiguousarray(wav, np.float32)
+    n_out = lib.dvc_harvest_frames(len(wav), fs, frame_period)
+    f0 = np.zeros(n_out, np.float64)
+    got = lib.dvc_dio(wav.ctypes.data_as(_F), len(wav), fs, frame_period, f0_floor, f0_ceil,
+                      channels_in_octave, allowed_range, f0.ctypes.data_as(_D))
+    if got != n_out:
+        raise RuntimeError(f"native dio failed ({got})")
     timeaxis = np.arange(n_out, dtype=np.float64) * frame_period / 1000.0
     return f0, timeaxis
 

@@ -9,10 +9,17 @@ mc2sp, and WORLD synthesis.  As in dvc_tpu there are two routes:
     the C++ engine (native/dvc_world.cpp), CheapTrick and the mel-cepstrum
     on ``device`` (``world_decompose``); the engine's pulse-by-pulse
     synthesizer (``world_speech_synthesis``);
-  * batched on the device: Harvest (ops/harvest.py), CheapTrick and the
-    mel-cepstrum over length buckets of utterances
+  * batched on the device: Harvest (ops/harvest.py), CheapTrick, the
+    mel-cepstrum and D4C (ops/d4c.py) over length buckets of utterances
     (``world_decompose_batch``), and the frame-rate overlap-add synthesis
     (``synthesize_batch``).
+
+``use_native=False`` takes dvc_tpu's all-device chain instead: the NCCF F0
+tracker (``estimate_f0``), CheapTrick, the correlation aperiodicity
+(``aperiodicity``) and the mel-cepstrum in ``world_decompose``, the
+device ``synthesize`` in ``world_speech_synthesis``.  ``True``, the
+default, takes the native engine, which raises if it fails to build:
+nothing falls back.
 
 ``freqt``, SPTK's frequency warping, is a nested recursion that dvc_tpu
 writes as a double ``lax.scan``.  For a fixed order and alpha it is linear
@@ -25,10 +32,6 @@ The device synthesis sums its pulse phase in the order XLA's cumsum uses
 (``xla_cumsum``), so that its pulses fall on the samples dvc_tpu's do, and
 draws its noise from ``synthesis_noise``, one CPU ``torch.Generator`` an
 utterance, so the card and the CPU synthesize from the same draws.
-
-Not ported, since no command of dvc_tpu reaches them: the all-JAX fallback
-chain (NCCF F0, correlation aperiodicity) and the device D4C
-(``world_decompose_batch(keep_sp_ap=True)``).
 """
 
 from __future__ import annotations
@@ -40,8 +43,6 @@ import torch
 import torch.nn.functional as F
 
 from dvc_tpu_torch.utils.device import resolve_device
-
-NOT_PORTED = "not yet ported — see ROADMAP.md"
 
 DEFAULT_F0 = 500.0
 Q1 = -0.15
@@ -115,6 +116,48 @@ def mc2sp(mc: torch.Tensor, alpha: float, fftlen: int) -> torch.Tensor:
     c[..., 0] *= 2.0
     sym = torch.cat([c, c[..., 1:-1].flip(-1)], dim=-1)
     return torch.exp(torch.fft.rfft(sym, dim=-1).real)
+
+
+# --- F0 estimation (the all-device chain) -------------------------------------
+
+def estimate_f0(wav: torch.Tensor, fs: int = 16_000, frame_period: float = 5.0,
+                f0_floor: float = 71.0, f0_ceil: float = 800.0,
+                threshold: float = 0.30) -> tuple[torch.Tensor, torch.Tensor]:
+    """(T,) waveform -> (f0 (N,), timeaxis (N,)) at ``frame_period`` ms on
+    wav's device (dvc_tpu/ops/world.py:146-210): NCCF peak picking in the
+    lag band [fs/f0_ceil, fs/f0_floor] with parabolic refinement, voicing
+    by the correlation ``threshold`` and an energy gate, 3-tap median
+    smoothing.  pyworld.harvest's contract: f0 == 0 where unvoiced."""
+    wav = torch.as_tensor(wav).to(torch.float32)
+    hop = int(fs * frame_period / 1000.0)
+    lag_min = int(np.floor(fs / f0_ceil))
+    lag_max = int(np.ceil(fs / f0_floor))
+    win = 2 * lag_max  # two periods of the lowest pitch
+    n_frames = int(wav.shape[-1] // hop) + 1
+    frames = F.pad(wav, (win // 2, win + lag_max)).unfold(-1, win + lag_max, hop)[:n_frames]
+    base = frames[:, :win]
+    base = base - base.mean(-1, keepdim=True)
+    e0 = (base * base).sum(-1)
+    # corr(k) = sum_t base[t] * frame[t + k] for every lag k of the band
+    shifted = frames.unfold(-1, win, 1)[:, lag_min:lag_max + 1]
+    shifted = shifted - shifted.mean(-1, keepdim=True)
+    num = torch.einsum("nw,nlw->nl", base, shifted)
+    nccf = num / torch.sqrt(e0[:, None] * (shifted * shifted).sum(-1) + 1e-12)
+    n_lags = nccf.shape[-1]
+    best = nccf.argmax(-1)
+    best_corr = nccf.gather(-1, best[:, None])[:, 0]
+    ym1 = nccf.gather(-1, (best - 1).clamp(0, n_lags - 1)[:, None])[:, 0]
+    yp1 = nccf.gather(-1, (best + 1).clamp(0, n_lags - 1)[:, None])[:, 0]
+    denom = ym1 - 2 * best_corr + yp1
+    delta = torch.where(denom.abs() > 1e-9, 0.5 * (ym1 - yp1) / denom, 0.0).clamp(-1.0, 1.0)
+    f0 = fs / (lag_min + best + delta)
+    energy_db = 10.0 * torch.log10(e0 / win + 1e-12)
+    voiced = (best_corr > threshold) & (energy_db > -55.0) & (f0 >= f0_floor) & (f0 <= f0_ceil)
+    f0 = torch.where(voiced, f0, 0.0)
+    f0_pad = F.pad(f0[None, None], (1, 1), mode="replicate")[0, 0]
+    f0 = torch.stack([f0_pad[:-2], f0_pad[1:-1], f0_pad[2:]]).median(0).values
+    timeaxis = torch.arange(n_frames, device=wav.device, dtype=torch.float32) * hop / fs
+    return f0, timeaxis
 
 
 def cheaptrick_fft_size(fs: int, f0_floor: float = 71.0) -> int:
@@ -195,6 +238,46 @@ def spectral_envelope(wav: torch.Tensor, f0: torch.Tensor, fs: int = 16_000,
     return torch.exp(rec[..., :n_freq])
 
 
+def aperiodicity(wav: torch.Tensor, f0: torch.Tensor, fs: int = 16_000,
+                 frame_period: float = 5.0, fft_size: int | None = None) -> torch.Tensor:
+    """The all-device chain's band aperiodicity in D4C's role
+    (dvc_tpu/ops/world.py:293-330): per frame 1 - |r(T0)|, the normalized
+    autocorrelation at the pitch lag, clipped, shaped by a mild upward
+    tilt with frequency onto the (N, fft_size//2+1) grid; unvoiced frames
+    get 1 - 1e-12 (1 in float32)."""
+    wav = torch.as_tensor(wav).to(torch.float32)
+    f0 = torch.as_tensor(f0).to(wav.device, torch.float32)
+    if fft_size is None:
+        fft_size = cheaptrick_fft_size(fs)
+    n_freq = fft_size // 2 + 1
+    hop = int(fs * frame_period / 1000.0)
+    n, win = f0.shape[0], 1024
+    right = max(win * 2, (n - 1) * hop + 2 * win - win // 2 - wav.shape[-1])
+    segs = F.pad(wav, (win // 2, right)).unfold(-1, win * 2, hop)[:n]
+    base = segs[:, :win] - segs[:, :win].mean(-1, keepdim=True)
+    f0_safe = torch.where(f0 > 0, f0, DEFAULT_F0)
+    lag = (fs / f0_safe).to(torch.int32).clamp(1, win - 1).long()
+    shifted = segs.gather(-1, lag[:, None] + torch.arange(win, device=wav.device)[None, :])
+    shifted = shifted - shifted.mean(-1, keepdim=True)
+    r = (base * shifted).sum(-1) / torch.sqrt((base ** 2).sum(-1) * (shifted ** 2).sum(-1)
+                                             + 1e-12)
+    top = float(np.float32(1.0 - 1e-12))
+    ap_base = (1.0 - r.abs()).clamp(0.001, 1.0)
+    ap_base = torch.where(f0 > 0, ap_base, top)
+    tilt = 0.3 + 0.7 * torch.linspace(0.0, 1.0, n_freq, device=wav.device)[None, :]
+    ap = ap_base[:, None].sqrt() * tilt + ap_base[:, None] * (1.0 - tilt)
+    return torch.where(f0[:, None] > 0, ap, top).clamp(0.001, top)
+
+
+def _analysis_chain(wav: torch.Tensor, fs: int, frame_period: float, num_mcep: int):
+    """The all-device WORLD analysis: NCCF F0, CheapTrick, the correlation
+    aperiodicity, the mel-cepstrum (dvc_tpu's _analysis_chain)."""
+    f0, timeaxis = estimate_f0(wav, fs, frame_period)
+    sp = spectral_envelope(wav, f0, fs, frame_period)
+    ap = aperiodicity(wav, f0, fs, frame_period, fft_size=2 * (sp.shape[-1] - 1))
+    return f0, timeaxis, sp, ap, sp2mc(sp, order=num_mcep - 1, alpha=mcepalpha(fs))
+
+
 def envelope_mcep(wav: torch.Tensor, f0: torch.Tensor, fs: int, frame_period: float,
                   num_mcep: int) -> tuple[torch.Tensor, torch.Tensor]:
     """CheapTrick and the mel-cepstrum for a given F0 contour, on the
@@ -205,20 +288,28 @@ def envelope_mcep(wav: torch.Tensor, f0: torch.Tensor, fs: int, frame_period: fl
 
 def world_decompose(wav: np.ndarray, fs: int, frame_period: float = 5.0,
                     num_mcep: int = 36, pad_to: int = 8000,
-                    device: str | torch.device = "cuda"):
-    """Reference world_decompose (WORLD_processing.py:29-39), dvc_tpu's
-    native route: returns numpy (f0, timeaxis, sp, ap, mc) of
-    len(wav)//hop + 1 frames.  Harvest F0 and D4C aperiodicity in the C++
-    engine on the host; CheapTrick and sp2mc on ``device`` over the wav
+                    use_native: bool = True, device: str | torch.device = "cuda"):
+    """Reference world_decompose (WORLD_processing.py:29-39): returns numpy
+    (f0, timeaxis, sp, ap, mc) of len(wav)//hop + 1 frames, over the wav
     zero-padded to a multiple of ``pad_to`` samples (dvc_tpu pads to reuse
     compiled shapes; the port pads alike, so that it reads the same
-    samples), cropped back."""
+    samples), cropped back.  ``use_native`` True (dvc_tpu's
+    production route): Harvest F0 and D4C aperiodicity in the C++ engine
+    on the host, CheapTrick and sp2mc on ``device``.  False: the
+    all-device chain (``_analysis_chain``)."""
     from dvc_tpu_torch.native import world as native_world
 
     dev = resolve_device(device)
     hop = int(fs * frame_period / 1000.0)
     n_true = len(wav) // hop + 1
     wav = np.asarray(wav, np.float32)
+    if not use_native:
+        padded = wav
+        if pad_to:
+            padded = np.pad(wav, (0, int(np.ceil((len(wav) + 1) / pad_to)) * pad_to - len(wav)))
+        with torch.inference_mode():
+            out = _analysis_chain(torch.from_numpy(padded).to(dev), fs, frame_period, num_mcep)
+        return tuple(x[:n_true].cpu().numpy() for x in out)
     f0, timeaxis = native_world.harvest(wav, fs, frame_period)
     # n_true and harvest's own frame count agree only when
     # fs * frame_period / 1000 is an integer: crop or pad f0 to n_true
@@ -249,15 +340,13 @@ def world_decompose_batch(wavs: list[np.ndarray], fs: int, frame_period: float =
     (dvc_tpu/ops/world.py:579-669): the per-utterance contract of
     world_decompose, with Harvest (ops/harvest.py), CheapTrick and the
     mel-cepstrum batched over buckets of utterances zero-padded to a
-    multiple of ``pad_to`` samples, ``max_batch`` at a time.  Returns
-    (f0, timeaxis, None, None, mc) per utterance: ``keep_sp_ap=True`` needs
-    the device D4C (dvc_tpu/ops/d4c.py), which no command of dvc_tpu
-    reaches, and raises."""
+    multiple of ``pad_to`` samples, ``max_batch`` at a time, and with
+    ``keep_sp_ap`` the device D4C (ops/d4c.py).  Returns (f0, timeaxis, sp,
+    ap, mc) per utterance; sp and ap are None when ``keep_sp_ap`` is False
+    (preprocess-world stores f0 and the mel-cepstrum only)."""
+    from dvc_tpu_torch.ops.d4c import d4c_batch
     from dvc_tpu_torch.ops.harvest import harvest_batch
 
-    if keep_sp_ap:
-        raise NotImplementedError(
-            f"world_decompose_batch(keep_sp_ap=True), the device D4C, is {NOT_PORTED}")
     dev = resolve_device(device)
     hop = int(fs * frame_period / 1000.0)
     alpha = mcepalpha(fs)
@@ -280,13 +369,21 @@ def world_decompose_batch(wavs: list[np.ndarray], fs: int, frame_period: float =
                 f0_d = harvest_batch(batch_d, [len(wavs[i]) for i in chunk], fs, frame_period)
                 # the harvest grid aligned to the sp/mc frame contract
                 f0_d = F.pad(f0_d, (0, max(0, n_pad_frames - f0_d.shape[-1])))[:, :n_pad_frames]
-                mc_b = sp2mc(spectral_envelope(batch_d, f0_d, fs, frame_period), num_mcep - 1,
-                             alpha).cpu().numpy()
+                sp_d = spectral_envelope(batch_d, f0_d, fs, frame_period)
+                mc_b = sp2mc(sp_d, num_mcep - 1, alpha).cpu().numpy()
+                sp_b = ap_b = None
+                if keep_sp_ap:
+                    ap_b = d4c_batch(batch_d, f0_d, fs, frame_period,
+                                     fft_size=2 * (sp_d.shape[-1] - 1), device=dev).cpu().numpy()
+                    sp_b = sp_d.cpu().numpy()
                 f0_b = f0_d.cpu().numpy()
                 for r, i in enumerate(chunk):
                     n_true = len(wavs[i]) // hop + 1
                     timeaxis = (np.arange(n_true) * frame_period / 1000.0).astype(np.float32)
-                    results[i] = (f0_b[r, :n_true], timeaxis, None, None, mc_b[r, :n_true])
+                    sp = ap = None
+                    if keep_sp_ap:
+                        sp, ap = sp_b[r, :n_true], ap_b[r, :n_true]
+                    results[i] = (f0_b[r, :n_true], timeaxis, sp, ap, mc_b[r, :n_true])
     return results
 
 
@@ -297,10 +394,17 @@ def world_encode_data(wav: np.ndarray, fs: int, frame_period: float = 5.0,
 
 
 def world_speech_synthesis(f0: np.ndarray, sp: np.ndarray, ap: np.ndarray, fs: int,
-                           frame_period: float = 5.0) -> np.ndarray:
-    """Reference world_speech_synthesis (WORLD_processing.py:99-106) on the
-    native engine's pulse-by-pulse synthesizer: len(f0) * hop samples."""
+                           frame_period: float = 5.0, use_native: bool = True,
+                           device: str | torch.device = "cuda") -> np.ndarray:
+    """Reference world_speech_synthesis (WORLD_processing.py:99-106):
+    len(f0) * hop float32 samples.  ``use_native`` True: the native
+    engine's pulse-by-pulse synthesizer; False: the frame-rate device
+    ``synthesize`` on ``device``."""
     from dvc_tpu_torch.native import world as native_world
+    if not use_native:
+        with torch.inference_mode():
+            return synthesize(*(torch.from_numpy(np.array(x, np.float32)).to(
+                resolve_device(device)) for x in (f0, sp, ap)), fs, frame_period).cpu().numpy()
     return native_world.synthesize(np.asarray(f0, np.float64), np.asarray(sp, np.float64),
                                    np.asarray(ap, np.float64), fs, frame_period,
                                    y_length=len(f0) * int(fs * frame_period / 1000.0))

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from dvc_tpu_torch.config import MeshConfig
+from dvc_tpu_torch.utils.convert import flax_shape, keeps_torch_layout
 from dvc_tpu_torch.utils.device import resolve_device
 
 ZERO_MIN_SIZE = 2 ** 14   # dvc_tpu's _zero_spec: smaller tensors stay replicated
@@ -152,25 +153,15 @@ def replicated(mesh: Mesh) -> tuple:
     return (Replicate(), Replicate())
 
 
-def _is_lstm_weight(name: str) -> bool:
-    leaf = name.rsplit(".", 1)[-1]
-    return leaf.startswith(("weight_ih", "weight_hh"))
-
-
 def _flax_axis_to_torch(name: str, ndim: int, axis: int) -> int:
-    return axis if _is_lstm_weight(name) or ndim == 1 else ndim - 1 - axis
-
-
-def _flax_shape(name: str, shape: Sequence[int]) -> tuple[int, ...]:
-    shape = tuple(shape)
-    return shape if _is_lstm_weight(name) else shape[::-1]
+    return axis if keeps_torch_layout(name) or ndim == 1 else ndim - 1 - axis
 
 
 def zero_placement(name: str, shape: Sequence[int], dp: int) -> Shard | Replicate:
     """dvc_tpu's _zero_spec on one tensor: tensors of at least ZERO_MIN_SIZE
     elements shard their largest axis (in dvc_tpu's order, argsort of its
     layout's shape, last first) that dp divides; the rest replicate."""
-    fshape = _flax_shape(name, shape)
+    fshape = flax_shape(name, shape)
     if len(fshape) == 0 or int(np.prod(fshape)) < ZERO_MIN_SIZE:
         return Replicate()
     for ax in np.argsort(fshape)[::-1]:
@@ -185,7 +176,7 @@ def model_placement(name: str, shape: Sequence[int], mp: int) -> Shard | Replica
     axis mp divides shards that axis (a Linear's or Conv1d's output
     features, torch dim 0; an LSTM weight's input features, torch dim 1),
     unless its name holds one of TP_EXCLUDE; the rest replicate."""
-    fshape = _flax_shape(name, shape)
+    fshape = flax_shape(name, shape)
     if (mp <= 1 or len(fshape) < 2 or int(np.prod(fshape)) < TP_MIN_SIZE
             or fshape[-1] % mp or any(ex in name for ex in TP_EXCLUDE)):
         return Replicate()

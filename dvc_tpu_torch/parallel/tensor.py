@@ -28,7 +28,7 @@ one rank, for the checkpoints one process writes and reads.
 from __future__ import annotations
 
 import copy
-from typing import Iterable, Mapping
+from typing import Iterable, Iterator, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -180,6 +180,35 @@ class MeshAdam:
         for _, p, _, ddim, t in self.entries:
             if ddim is not None:
                 p.copy_(gather_blocks(t.detach(), ddim, mesh.data_group))
+
+    def shards(self, rank: int) -> Iterator[tuple[str, str, torch.Tensor, tuple[int, ...],
+                                                   tuple[int, ...], bool]]:
+        """What a checkpoint holds of each parameter, as this rank's blocks
+        in torch's layout: (name, "param", "exp_avg" or "exp_avg_sq", the
+        block, the whole tensor's shape, the block's index in the grid of
+        equal blocks that tiles it, whether ``rank`` is the lowest rank
+        holding the block, the one that writes it).  A parameter is split
+        along its model dim, its moments also along their data dim (ZeRO);
+        moments Adam has not made yet are zeros."""
+        mesh = self.mesh
+        replica0 = rank < mesh.dp * mesh.mp
+        for name, p, mdim, ddim, t in self.entries:
+            shape, index = list(p.shape), [0] * p.dim()
+            if mdim is not None:
+                shape[mdim] *= mesh.mp
+                index[mdim] = mesh.model_index
+            lowest = replica0 and (mdim is not None or mesh.model_index == 0)
+            yield name, "param", p, tuple(shape), tuple(index), lowest and mesh.data_index == 0
+            if ddim is not None:
+                index[ddim] = index[ddim] * mesh.dp + mesh.data_index
+            st = self.inner.state.get(t) or {}
+            for key in ("exp_avg", "exp_avg_sq"):
+                yield (name, key, st[key] if st else torch.zeros_like(t), tuple(shape),
+                       tuple(index), lowest and (ddim is not None or mesh.data_index == 0))
+
+    def step_count(self) -> int:
+        """Adam's step count (0 before its first step)."""
+        return next((int(st["step"]) for st in self.inner.state.values() if st), 0)
 
     def moment_bytes(self) -> dict[str, tuple[int, int]]:
         """name -> (bytes of Adam's moments this rank holds, bytes of the

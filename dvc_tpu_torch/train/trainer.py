@@ -1,5 +1,4 @@
-"""Training runtime of the disentangled VAE (port of dvc_tpu/train/trainer.py:50-453,
-without its Orbax branch).
+"""Training runtime of the disentangled VAE (port of dvc_tpu/train/trainer.py:50-453).
 
 One train step is forward(pair) + loss + backward + Adam, eager on the
 device: cuDNN convolutions and LSTMs, cuBLAS matmuls, in exact float32
@@ -33,9 +32,13 @@ batch's noise from the step's seed and keeps its rows; the weights that
 ``param_sharding_for`` shards compute column-parallel over the model
 axis; ``parallel.tensor.MeshAdam`` averages the gradients and, with
 ``MeshConfig.shard_opt_state``, keeps Adam's moments in ZeRO shards; the
-logged terms are averaged over the data axis.  Rank 0 alone writes the
-checkpoints (the files one process writes, gathered from the shards),
-TensorBoard and the PNGs; every rank resumes from the same files.  With
+logged terms are averaged over the data axis.  With
+``checkpoint_format="orbax"`` every rank writes the chunks it holds into
+its own store of the checkpoint and rank 0 its metadata
+(``checkpoint.save_orbax_sharded``, no gather); with msgpack rank 0
+writes the files one process writes, gathered from the shards.  Rank 0
+alone writes TensorBoard and the PNGs; every rank resumes from the same
+files, reading whole arrays and keeping its blocks.  With
 no process group the step is the one-process step, unchanged.
 """
 
@@ -71,8 +74,6 @@ NOT_PORTED = "not yet ported — see ROADMAP.md"
 def unported_settings(cfg: Config) -> list[str]:
     """The settings of ``cfg`` the port does not train with yet."""
     out = []
-    if cfg.train.checkpoint_format == "orbax":
-        out.append('checkpoint_format="orbax"')
     if cfg.train.compute_dtype not in ("bfloat16", "float32"):
         out.append(f"compute_dtype={cfg.train.compute_dtype!r}")
     return out
@@ -296,20 +297,24 @@ class Trainer:
         return epoch + 1
 
     def save(self, epoch: int) -> str:
-        """Write the epoch's checkpoint; returns the .pth's path.  Under a
-        mesh every rank gathers the shards and rank 0 writes the files one
-        process writes; no rank returns before they are whole."""
+        """Write the epoch's checkpoint; returns the .pth's path (the
+        .orbax directory's for a mesh's orbax save).  Under a mesh, orbax:
+        every rank writes its own chunks (``save_orbax_sharded``); msgpack:
+        every rank gathers the shards and rank 0 writes the files one
+        process writes.  No rank returns before they are whole."""
+        fmt = self.cfg.train.checkpoint_format
         if self.mesh is None:
             return ckpt_lib.save_checkpoint(self.checkpoints_path, self.run_name, epoch,
-                                            self.model, self.optimizer, self.step,
-                                            fmt=self.cfg.train.checkpoint_format)
+                                            self.model, self.optimizer, self.step, fmt=fmt)
+        if fmt == "orbax":
+            return ckpt_lib.save_orbax_sharded(self.checkpoints_path, self.run_name, epoch,
+                                               self.model, self.optimizer, self.step)
         full, full_opt = self._full_template()
         gather_full_(full, full_opt, self.model, self.optimizer)
         path = os.path.join(self.checkpoints_path, f"{self.run_name}_{epoch}{ckpt_lib.SUFFIX}")
         if is_primary():
             path = ckpt_lib.save_checkpoint(self.checkpoints_path, self.run_name, epoch,
-                                            full, full_opt, self.step,
-                                            fmt=self.cfg.train.checkpoint_format)
+                                            full, full_opt, self.step, fmt=fmt)
         dist.barrier()
         return path
 

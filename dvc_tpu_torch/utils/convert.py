@@ -29,7 +29,7 @@ reads the other's checkpoints (train/checkpoint.py).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +41,27 @@ def _t(a) -> torch.Tensor:
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def keeps_torch_layout(name: str) -> bool:
+    """Whether dvc_tpu keeps the tensor of state-dict name ``name`` in
+    torch's layout (the LSTM weights); every other tensor's axes are
+    reversed (Linear and Conv1d kernels; 1-D tensors are unchanged)."""
+    return name.rsplit(".", 1)[-1].startswith(("weight_ih", "weight_hh"))
+
+
+def flax_shape(name: str, shape: Sequence[int]) -> tuple[int, ...]:
+    """A shape, or a block's index in a grid, of tensor ``name`` in
+    dvc_tpu's layout."""
+    shape = tuple(shape)
+    return shape if keeps_torch_layout(name) else shape[::-1]
+
+
+def flax_array(name: str, t: torch.Tensor) -> np.ndarray:
+    """Tensor ``name``, or a block of it, in dvc_tpu's layout, float32 on
+    the host, as the map above carries whole tensors."""
+    a = t.detach().to("cpu", torch.float32)
+    return (a if keeps_torch_layout(name) else a.permute(*reversed(range(a.dim())))).numpy()
 
 
 def _linear(sd: dict, prefix: str, p: Mapping[str, Any]) -> None:
@@ -351,6 +372,30 @@ def autovc_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> tuple[dict, d
             inv = {"conv": _conv1d_inv, "linear": _linear_inv, "lstm": _lstm_inv}[kind]
             _put(params, path, inv(sd, prefix))
     return params, stats
+
+
+def vae_tree_paths(sd: Mapping[str, Any]) -> dict[str, tuple[str, tuple[str, ...]]]:
+    """State-dict name -> ("params" or "batch_stats", the path in dvc_tpu's
+    tree) for every VAE parameter and BatchNorm statistic of ``sd`` (the
+    names vae_tree_from_state_dict maps; num_batches_tracked has none)."""
+    n_post = sum(1 for k in sd if k.startswith("postnet.convolutions.")
+                 and k.endswith(".0.conv.weight"))
+    out = {}
+    for kind, prefix, path in _vae_layout(n_post):
+        if kind == "bn":
+            out.update({f"{prefix}.weight": ("params", path + ("scale",)),
+                        f"{prefix}.bias": ("params", path + ("bias",)),
+                        f"{prefix}.running_mean": ("batch_stats", path + ("mean",)),
+                        f"{prefix}.running_var": ("batch_stats", path + ("var",))})
+        elif kind == "lstm":
+            for key in sd:
+                if key.startswith(prefix + "."):
+                    what, rest = key[len(prefix) + 1:].split("_", 1)
+                    out[key] = ("params", path + (f"{'w' if what == 'weight' else 'b'}_{rest}",))
+        else:
+            out.update({f"{prefix}.weight": ("params", path + ("kernel",)),
+                        f"{prefix}.bias": ("params", path + ("bias",))})
+    return {k: v for k, v in out.items() if k in sd}
 
 
 def optax_adam_from_torch(model: torch.nn.Module, optimizer: torch.optim.Optimizer,

@@ -11,6 +11,7 @@ The same seeded numpy inputs and weights go to both packages (the
 adversary's through adversary_state_dict_from_jax); dvc_tpu's noise is
 injected as in test_torch_port_train.py."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import dataclasses
 import json
 import os

@@ -11,6 +11,7 @@ must too, and a variant whose statistics carry no gradient is shown to
 fail the gradient check.  dvc_tpu's gradient is read off its step's Adam
 state (after one step optax's first moment is (1 - b1) g)."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ statistics, Adam's moments and the step cross as float32 and int32 bits,
 so they are held equal; a conversion through the loaded weights is held at
 the full-VAE gate of tests/test_torch_parity.py:234-244 (1e-3/1e-4)."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import copy
 import os
 
@@ -286,18 +287,28 @@ def test_discovery_newest_epoch_across_formats(tmp_path, files, want):
 
 
 def test_orbax_refused(tmp_path):
-    """A newest .orbax checkpoint, checkpoint_format="orbax" and
-    --checkpoint-format orbax all stop with "not yet ported"."""
+    """Orbax is a format like msgpack now: a newest .orbax checkpoint is
+    what load_last_checkpoint loads, save_checkpoint(fmt="orbax") writes
+    the .orbax beside the .pth pair, and only an unknown format is refused
+    (by save_checkpoint and by the CLI's choices)."""
     model = DisentangledVAE(VAEConfig(**SMALL))
     _touch_checkpoint(str(tmp_path / "DisentangledVAE_VCTK_1.pth"), model, 10**9)
-    _touch_checkpoint(str(tmp_path / "DisentangledVAE_VCTK_2.orbax"), model, 2 * 10**9)
-    with pytest.raises(NotImplementedError, match="orbax.*not yet ported"):
-        ckpt.load_last_checkpoint(str(tmp_path), model)
-    with pytest.raises(NotImplementedError, match="orbax.*not yet ported"):
-        ckpt.save_checkpoint(str(tmp_path), "x", 1, model, fmt="orbax")
-    with pytest.raises(SystemExit, match="orbax.*not yet ported"):
+    other = DisentangledVAE(VAEConfig(**SMALL))
+    with torch.no_grad():
+        for p in other.parameters():
+            p.add_(1.0)
+    ckpt.save_checkpoint(str(tmp_path / "o"), "DisentangledVAE_VCTK", 2, other, fmt="orbax")
+    os.rename(tmp_path / "o" / "DisentangledVAE_VCTK_2.orbax",
+              tmp_path / "DisentangledVAE_VCTK_2.orbax")
+    assert sorted(os.listdir(tmp_path / "o")) == ["DisentangledVAE_VCTK_2.pth"]
+    assert ckpt.load_last_checkpoint(str(tmp_path), model) == 2
+    for (n, a), b in zip(model.state_dict().items(), other.state_dict().values()):
+        assert n.endswith("num_batches_tracked") or torch.equal(a, b), n
+    with pytest.raises(ValueError, match="unknown checkpoint format"):
+        ckpt.save_checkpoint(str(tmp_path), "x", 1, model, fmt="zip")
+    with pytest.raises(SystemExit):
         cli.main(["train", "--dataset_fp", str(tmp_path), "--log_dir", str(tmp_path),
-                  "--checkpoint-format", "orbax", "--device", "cpu"])
+                  "--checkpoint-format", "zip", "--device", "cpu"])
 
 
 # --- the vocoder ---------------------------------------------------------------

@@ -6,6 +6,7 @@ FeatureSelectionTrainer.train (per-epoch loss and accuracy, the mask), and
 tiny widths, with dvc_tpu reading the port's feature_mask.npz and writing
 its own latent analysis from the same checkpoint."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import argparse
 import dataclasses
 import os

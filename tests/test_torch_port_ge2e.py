@@ -12,6 +12,7 @@ built with mesh=None, so the 8 virtual CPU devices of tests/conftest.py do
 not shard it.  dvc_tpu's gradient is read off its step's Adam state: after
 one step optax's first moment is (1 - b1) g."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ resampling, and the profile-transfer route (speaker_mel_profile,
 VoiceConverter, ProfileTransferService over HTTP, the CLI).  The same
 seeded numpy inputs go to both packages."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import io
 import socket
 import threading

@@ -23,6 +23,7 @@ contour, and a row masked to 5000 samples.  Limits (measured in brackets):
     the refinement gather): the same limits as at 16 kHz (2.7e-6, 3.7e-6).
 """
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

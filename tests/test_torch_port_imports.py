@@ -4,6 +4,7 @@ source level over every file.  The port's native engines are its own
 builds: a process that loads all three maps no shared object of
 dvc_tpu/native."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import ast
 import os
 import subprocess
@@ -43,12 +44,14 @@ MODULES = [
     "dvc_tpu_torch.data.world_preprocess", "dvc_tpu_torch.convert.world_conversion",
     "dvc_tpu_torch.parallel", "dvc_tpu_torch.parallel.mesh", "dvc_tpu_torch.parallel.multihost",
     "dvc_tpu_torch.parallel.sequence", "dvc_tpu_torch.parallel.collectives",
-    "dvc_tpu_torch.parallel.tensor",
+    "dvc_tpu_torch.parallel.tensor", "dvc_tpu_torch.native.zstd", "dvc_tpu_torch.utils.ocdbt",
+    "dvc_tpu_torch.utils.orbax", "dvc_tpu_torch.ops.d4c", "dvc_tpu_torch.ops.pitch",
+    "dvc_tpu_torch.ops.group", "dvc_tpu_torch.utils.profiling", "dvc_tpu_torch.eval.parity",
 ]
 
 FORBIDDEN_SO = os.sep + os.path.join("dvc_tpu", "native") + os.sep
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dvc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dvc_tpu", "tensorstore", "zstandard")
 
 
 def _forbidden(name: str) -> bool:

@@ -6,6 +6,7 @@ clip + AdamW against optax, make_istft_vocoder's batches, and the
 checkpoints both ways.  The same seeded numpy inputs and weights (through
 utils/convert) go to both packages."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

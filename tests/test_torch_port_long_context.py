@@ -5,6 +5,7 @@ whole_utterance_encode (chunk counts included), context crossing chunk
 boundaries, convert_mel_long_context against dvc_tpu's, and the flags it
 cannot be combined with."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -21,6 +21,7 @@ formula).  The port keeps the sum in float64.  So the port is held:
   * freqt and sp2mc on the same inputs: within 1e-5 of the output's max.
 """
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import os
 
 import jax.numpy as jnp

@@ -1,6 +1,7 @@
 """Port parity of the mel front end: dvc_tpu_torch.ops vs dvc_tpu.ops on the
 same numpy inputs."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

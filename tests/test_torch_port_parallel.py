@@ -12,6 +12,7 @@ dvc_tpu runs in this process on conftest's 8 CPU devices, its noise
 injected as in test_torch_port_train.py; the weights reach the ranks
 through a dvc_tpu checkpoint, which their Trainer resumes and shards."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import dataclasses
 
 import jax
@@ -252,8 +253,8 @@ def dp2(tmp_path_factory):
                        opt_state=gopt.init(params))
     rng = np.random.RandomState(0)
     batches = [rng.rand(16, 3, 20, 80).astype(np.float32) for _ in range(3)]
-    inputs = {"cfg": cfg, "ck": _jax_ckpt(tmp / "ck", v), "x1": x1, "x2": x2, "eps": eps,
-              "spk": SPK, "adv_sd": adversary_state_dict_from_jax(_np_tree(a_params)),
+    inputs = {"cfg": cfg, "ck": _jax_ckpt(tmp / "ck", v), "ock": str(tmp / "ock"),
+              "x1": x1, "x2": x2, "eps": eps, "spk": SPK, "adv_sd": adversary_state_dict_from_jax(_np_tree(a_params)),
               "bn": {g: _bn_inputs(g) for g in (1, 2)},
               "ge2e_cfg": SpeakerEncoderConfig(**GE2E),
               "ge2e_sd": speaker_encoder_state_dict_from_jax(_np_tree(gstate.params)),
@@ -400,6 +401,51 @@ def test_checkpoint_two_ranks(dp2):
         assert err.size == 0 or err.max() <= PARAM_RTOL * np.abs(upd[name].numpy()).max(), name
 
 
+def _check_sharded_orbax(msgpack_dir: str, orbax_dir: str, world: int, mesh_shape) -> None:
+    """The ranks' sharded orbax checkpoint holds one store a rank, each
+    with chunks; dvc_tpu restores it, with its own mesh's shardings and
+    without, bit-equal to the msgpack checkpoint of the same state; the
+    one-process port resumes from it to the msgpack resume's state (but
+    BatchNorm's num_batches_tracked, which dvc_tpu's tree has no place for
+    and the port's BatchNorm, with its fixed momentum, never reads)."""
+    import os
+    from dvc_tpu_torch.utils import ocdbt
+    path = os.path.join(orbax_dir, f"{RUN}_1.orbax")
+    for r in range(world):
+        keys = ocdbt.read_entries(os.path.join(path, f"ocdbt.process_{r}"))
+        assert any(not k.endswith(b"/.zarray") for k in keys), r
+    assert sorted(os.listdir(orbax_dir)) == [f"{RUN}_1.orbax"]  # no .pth pair: no gather
+    _, v = jax_tiny_vae()
+    template = TrainState(step=jnp.zeros((), jnp.int32), params=v["params"],
+                          batch_stats=v["batch_stats"],
+                          opt_state=optax.adam(1e-4).init(v["params"]))
+    want = jax.tree_util.tree_leaves(jckpt.load_last_checkpoint(msgpack_dir, template)[1])
+    mesh = jmesh.make_mesh(JC.MeshConfig(**mesh_shape))
+    for sh in (None, jmesh.train_state_shardings(template, mesh, shard_opt_state=True)):
+        epoch, got = jckpt.load_last_checkpoint(orbax_dir, template, shardings=sh)
+        got = jax.tree_util.tree_leaves(got)
+        assert epoch == 1 and len(got) == len(want)
+        for a, b in zip(got, want):
+            assert np.asarray(a).dtype == np.asarray(b).dtype
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+    resumed = []
+    for d in (msgpack_dir, orbax_dir):
+        one = Trainer(_port_cfg(), checkpoints_path=d, device="cpu")
+        assert one.load_last() == 2 and one.step == 1
+        resumed.append((one.model.state_dict(), one.optimizer.state_dict()["state"]))
+    (sa, oa), (sb, ob) = resumed
+    for n in sa:
+        assert n.endswith("num_batches_tracked") or torch.equal(sa[n], sb[n]), n
+    for i in oa:
+        assert all(torch.equal(oa[i][k], ob[i][k]) for k in ("exp_avg", "exp_avg_sq")), i
+
+
+def test_orbax_two_ranks(dp2):
+    """Both ranks of dp 2 write their ZeRO chunks into their own store."""
+    _check_sharded_orbax(dp2["inputs"]["ck"], dp2["inputs"]["ock"], 2,
+                         {"data_parallel": 2, "model_parallel": 1})
+
+
 def test_ge2e_two_ranks(dp2):
     """The GE2E step with each rank embedding half the speakers against
     dvc_tpu's make_ge2e_step on its 8-device mesh, 3 steps, both ranks."""
@@ -439,7 +485,7 @@ def dp2mp2(tmp_path_factory):
     x1, x2, eps = _batch(22)
     cfg = _port_cfg().replace(mesh=MeshConfig(model_parallel=2))
     inputs = {"cfg": cfg, "cfg_b2": _port_cfg(batch_size=2), "ck": _jax_ckpt(tmp / "ck", v),
-              "x1": x1, "x2": x2, "eps": eps}
+              "ck2": str(tmp / "ck2"), "ock": str(tmp / "ock"), "x1": x1, "x2": x2, "eps": eps}
     ranks = Ranks("vae4", 4, tmp / "ranks", inputs)
     want = _jax_mesh_step(v, x1, x2, eps)
     return {"ranks": ranks.results(), "inputs": inputs, "jax": want}
@@ -480,6 +526,14 @@ def test_batch_2_on_4_ranks(dp2mp2):
     for n, p in ranks[0]["b2"]["params"].items():
         assert torch.equal(p, ranks[2]["b2"]["params"][n]), n
         assert torch.equal(ranks[1]["b2"]["params"][n], ranks[3]["b2"]["params"][n]), n
+
+
+def test_orbax_four_ranks(dp2mp2):
+    """dp 2 x mp 2: column-parallel blocks along their model dim and ZeRO
+    moments of those blocks, each chunk written by the lowest rank that
+    holds it, restored by dvc_tpu on its 4 x 2 mesh and without."""
+    _check_sharded_orbax(dp2mp2["inputs"]["ck2"], dp2mp2["inputs"]["ock"], 4,
+                         {"model_parallel": 2})
 
 
 @pytest.mark.parametrize("scenario", ["dp2mp2", "dp2"])

@@ -6,6 +6,7 @@ that cannot fit raise; the kernel source makes one cooperative launch and
 keeps no per-layer kernels; and the plain sampler on a packed TINY model
 still matches dvc_tpu's interpret-mode kernel."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import re
 from pathlib import Path
 
@@ -189,6 +190,37 @@ def test_open_loop_plain_matches_step_loop(open_loop_tiny, pack):
     assert got.shape == want.shape == (2, 40)
     assert _moves(want.numpy())
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def feedback_tiny():
+    """The TINY model with the moving head and its feedback kept, and its
+    upsampled conditioning, B = 2, 40 steps."""
+    m = _port(_moving(_jax_params(0)))
+    c = np.random.RandomState(7).rand(2, 10, TINY.cin_channels).astype(np.float32)
+    with torch.no_grad():
+        return m, m.upsample(torch.from_numpy(c)).contiguous()
+
+
+@pytest.mark.parametrize("pack", list(PACKS))
+def test_open_loop_plain_teacher_forced_matches_step_loop(feedback_tiny, pack):
+    """wavenet_open_loop_plain teacher-forced on the step loop's own samples,
+    which chip_smoke.py holds the main path's bf16 kernel to over all its
+    steps, returns the step loop's output (atol 1e-6, as above); forced on
+    other samples it returns something else."""
+    m, cond = feedback_tiny
+    dtype, quantize = PACKS[pack]
+    packed = step.pack_wavenet_params(m, dtype, "cpu", quantize)
+    assert bool(packed["w_first"].any())
+    want = step.wavenet_generate_plain(packed, cond, 0, deterministic=True)
+    got = step.wavenet_open_loop_plain(packed, cond, feedback=want)
+    assert got.shape == want.shape == (2, 40)
+    assert _moves(want.numpy())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+    other = step.wavenet_open_loop_plain(packed, cond, feedback=want.flip(1))
+    assert (other - want).abs().max().item() > 1e-3
+    with pytest.raises(ValueError, match="feedback"):
+        step.wavenet_open_loop_plain(packed, cond, feedback=want[:, :-1])
 
 
 def test_open_loop_plain_refuses_feedback(models):

@@ -4,6 +4,7 @@ matplotlib nothing but plot_latent_analysis' npz), VoiceConverter's four
 PNGs an utterance under dvc_tpu's names, and the Trainer's estimation PNGs
 at each report interval, whose failures are counted and logged."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import os
 
 import numpy as np

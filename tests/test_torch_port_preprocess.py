@@ -11,6 +11,7 @@ in [0, 1] within 1e-5 (the FFTs of two libraries differ in rounding only);
 the native mel engine within 2e-3 of the torch path (tests/test_native.py's
 gate for dvc_tpu's engine against its JAX path)."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import os
 import shutil
 

@@ -13,6 +13,7 @@ from a CUDA graph, nothing written in the call read before the wait), and
 the fragment pack that body_mma and P3 read, unpacked bit for bit and
 multiplied out lane by lane as mma.m16n8k16 reads it."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import importlib.util
 import re
 from pathlib import Path

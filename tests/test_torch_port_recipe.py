@@ -7,6 +7,7 @@ converted wavs, per-utterance MCDs.  dvc_tpu's own `convert` then loads the
 port's run directory.  The VAE's widths are cut to the tiny ones of
 tests/test_train.py in both CLIs; frames are 16."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import dataclasses
 import os
 

@@ -5,6 +5,7 @@ conv1d for k in {3, 5} and its gradient, the carry-relay LSTM forward and
 reversed, and whole_utterance_encode(mesh) over the tiny VAE, each against
 dvc_tpu's sharded function on conftest's 8 CPU devices."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 server against dvc_tpu's, with weights carried across by the bridge, and
 the port's CLI over a reference-format checkpoint."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import dataclasses
 import io
 import socket

@@ -5,6 +5,7 @@ and `eval-eer` on the port's run, AutoVCState from_bytes), and each file
 dvc_tpu writes loads in the port.  The commands' flags and defaults are
 dvc_tpu's, and they run on cuda unless told otherwise."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import re
 
 import jax

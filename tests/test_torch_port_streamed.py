@@ -6,6 +6,7 @@ the plain int8 sampler against the interpret-mode quantized kernel, and
 streamed, fused matmuls, two layers per block), all under the doctored
 deterministic head."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

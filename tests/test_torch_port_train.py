@@ -11,6 +11,7 @@ is replaced through flax.linen.intercept_methods on
 DisentangledVAE._reparameterize (three calls: content1, content2, style),
 and the port gets the same draws through ``eps``."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import dataclasses
 import os
 
@@ -440,11 +441,13 @@ def test_trainer_epochs_and_clamp(tmp_path):
 def test_unported_settings_refused():
     cfg = tiny_config()
     assert unported_settings(cfg) == []
-    bad = cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_format="orbax"))
-    with pytest.raises(NotImplementedError, match="orbax.*not yet ported"):
+    bad = cfg.replace(train=dataclasses.replace(cfg.train, compute_dtype="float16"))
+    with pytest.raises(NotImplementedError, match="float16.*not yet ported"):
         Trainer(bad, device="cpu")
-    # remat and the adversary are ported (test_torch_port_adversarial.py)
-    for ok in (cfg.replace(train=dataclasses.replace(cfg.train, remat=True)),
+    # orbax (test_torch_port_orbax.py), remat and the adversary
+    # (test_torch_port_adversarial.py) are ported
+    for ok in (cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_format="orbax")),
+               cfg.replace(train=dataclasses.replace(cfg.train, remat=True)),
                cfg.replace(loss=dataclasses.replace(cfg.loss, adv_cof=1.0, adv_speakers=2))):
         assert unported_settings(ok) == []
         Trainer(ok, device="cpu")
@@ -456,7 +459,8 @@ def test_cli_train_then_convert(tmp_path, monkeypatch, capsys):
     """`train` on a 2-speaker synthetic corpus writes config.json, the
     checkpoints and TensorBoard scalars, and its loss falls; `convert` with
     the default Griffin-Lim vocoder then writes wavs from the checkpoint it
-    wrote.  A refused flag exits with "not yet ported"."""
+    wrote; `train --checkpoint-format orbax` resumes and writes the next
+    epoch's .orbax beside the .pth pair."""
     from dvc_tpu_torch.utils.wavio import parse_wav
     _mel_tree(str(tmp_path / "mels"), utts=6, t_range=(20, 50))
     real_config = cli._config_from_args
@@ -486,5 +490,11 @@ def test_cli_train_then_convert(tmp_path, monkeypatch, capsys):
     for w in wavs:
         wav, sr = parse_wav(w.read_bytes())
         assert sr == 16000 and len(wav) > 0 and np.isfinite(wav).all()
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["train", *common, "--checkpoint-format", "orbax"])
+    assert cli.main(["train", *common, "--epochs", "5", "--report-interval", "1",
+                     "--batch-size", "2", "--compute-dtype", "float32", "--lr", "1e-3",
+                     "--checkpoint-format", "orbax"]) == 0
+    ck = run / "checkpoints"
+    assert {f"DisentangledVAE_VCTK_5{s}" for s in (".orbax", ".opt.pth", ".pth")} <= \
+        set(os.listdir(ck))
+    tree = ckpt.read_train_state(str(ck / "DisentangledVAE_VCTK_5.orbax"))
+    assert int(tree["step"]) == int(tree["opt_state"]["0"]["count"]) > 0

@@ -2,6 +2,7 @@
 encode/decode/postnet in eval mode, convert_mel (plain and FS-masked swap)
 and VoiceConverter, each against dvc_tpu on the same weights and inputs."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

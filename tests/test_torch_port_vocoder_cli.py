@@ -5,6 +5,7 @@ resampler runs) and write checkpoints that dvc_tpu reads; `convert` and
 exits with dvc_tpu's message; the command's flags and defaults are
 dvc_tpu's, and it runs on cuda unless told otherwise."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import numpy as np
 import pytest
 

@@ -7,6 +7,7 @@ The same seeded numpy inputs and weights (through utils/convert) go to
 both packages.  JAX's dropout stream is not torch's, so parity holds at
 dropout 0 and dropout is tested on its own."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import dataclasses
 import math
 

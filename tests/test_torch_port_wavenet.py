@@ -10,6 +10,7 @@ at -40), so trajectories compare value for value whatever the RNG.  Mixture
 does) so that the trajectory moves inside (-1, 1): the raw doctored head
 pins it near the -1 clip, where a wrong weight changes no sample."""
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

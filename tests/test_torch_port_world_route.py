@@ -19,6 +19,7 @@ that CheapTrick resolves every band in dvc_tpu's float32 sum too
     1e-3 of its max (6.2e-4).
 """
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import dataclasses
 import os
 
@@ -95,8 +96,12 @@ def test_world_decompose_batch_against_dvc_tpu(wav_dir):
         assert ((f0 > 0) == (jf0 > 0)).mean() >= AGREE_MIN and both.sum() >= 30
         assert np.median(np.abs(f0[both] - jf0[both]) / jf0[both]) <= F0_MEDIAN_MAX
         assert _rel_range(mc, jmc) <= MC_RANGE_ATOL
-    with pytest.raises(NotImplementedError, match="device D4C.*not yet ported"):
-        pworld.world_decompose_batch(wavs, SR, keep_sp_ap=True, device="cpu")
+    # keep_sp_ap=True adds the envelope and the device D4C's aperiodicity
+    # (held to dvc_tpu's in tests/test_torch_port_d4c.py)
+    f0, _, sp, ap, mc = pworld.world_decompose_batch(wavs[:1], SR, keep_sp_ap=True,
+                                                     device="cpu")[0]
+    assert sp.shape == ap.shape == (len(f0), 513) and ap.dtype == np.float32
+    assert _rel_range(mc, got[0][4]) <= MC_RANGE_ATOL and (ap >= 0.001).all() and (ap < 1).all()
     with pytest.raises(ValueError, match=">= 64 samples"):
         pworld.world_decompose_batch([wavs[0][:10]], SR, keep_sp_ap=False, device="cpu")
 

@@ -17,6 +17,7 @@ pinned to the same f0.  Limits (measured in brackets):
   * the service's reply, plain and FS-masked: 1e-5 of the peak (6.3e-7).
 """
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import threading
 import urllib.request
 

@@ -21,6 +21,7 @@ Limits (measured in brackets):
   * the statistics and the pitch conversion: equal.
 """
 
+import torch_threads  # noqa: F401  (one torch pool per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -132,6 +132,15 @@ def _injected_step(tr, inp) -> dict:
             "moment_bytes": tr.optimizer.moment_bytes()}
 
 
+def _save_orbax(tr, path: str) -> None:
+    """Trainer ``tr``'s state as a sharded orbax checkpoint at epoch 1 under
+    ``path``, each rank writing the chunks it holds."""
+    import dataclasses
+    tr.cfg = tr.cfg.replace(train=dataclasses.replace(tr.cfg.train, checkpoint_format="orbax"))
+    tr.checkpoints_path = path
+    tr.save(1)
+
+
 def _trainer(inp, ck=None):
     from dvc_tpu_torch.train.trainer import Trainer
     tr = Trainer(inp["cfg"], checkpoints_path=ck or "", device="cpu")
@@ -142,12 +151,17 @@ def _trainer(inp, ck=None):
 
 def scenario_vae4(inp: dict, rank: int, world: int) -> dict:
     """dp 2 x mp 2: the pair step on injected noise from a dvc_tpu
-    checkpoint; then batch 2 on the same 4 ranks (dp 2, two replicas)."""
+    checkpoint, and its checkpoints (msgpack, and orbax written by every
+    rank); then batch 2 on the same 4 ranks (dp 2, two replicas)."""
     from dvc_tpu_torch.parallel.mesh import data_rows
     tr = _trainer(inp, inp["ck"])
     assert (tr.mesh.dp, tr.mesh.mp) == (2, 2)
     out = {"step": _injected_step(tr, inp),
            "tp_dims": {n: p[1] for n, p in tr.shardings["params"].items()}}
+    tr.step = 1
+    tr.checkpoints_path = inp["ck2"]
+    tr.save(1)
+    _save_orbax(tr, inp["ock"])
     small = _trainer({"cfg": inp["cfg_b2"]})
     assert (small.mesh.dp, small.mesh.mp) == (2, 1)
     rows = data_rows(2, small.mesh)
@@ -159,7 +173,7 @@ def scenario_vae4(inp: dict, rank: int, world: int) -> dict:
 
 def scenario_dp2(inp: dict, rank: int, world: int) -> dict:
     """dp 2: grouped BatchNorm, the multihost helpers, the adversarial step
-    and its checkpoint, the check that the ranks walk one batch, and the
+    and its checkpoints (msgpack, and orbax written by both ranks), the check that the ranks walk one batch, and the
     GE2E steps."""
     import torch.distributed as dist
     from dvc_tpu_torch.config import MeshConfig
@@ -198,6 +212,7 @@ def scenario_dp2(inp: dict, rank: int, world: int) -> dict:
     out["adv"] = _injected_step(tr, inp)
     tr.step = 1
     tr.save(1)
+    _save_orbax(tr, inp["ock"])
     # a batch the ranks disagree on (an unseeded dataset) is refused on each
     out["same_batch"] = []
     for a in (np.arange(8.0), np.arange(8.0) + rank):
