@@ -221,11 +221,16 @@ Phases; any failure exits non-zero before a result line is printed:
             and ShardedLSTM (the tensor-parallel LSTM) over the one-rank
             group against the nn.LSTM it wraps, forward and backward;
             (ii) the GE2E step with a mesh against the plain step; (iii)
-            whole_utterance_encode(mesh) on the card against the CPU; (iv)
+            whole_utterance_encode(mesh) on the card against the CPU, and
+            the gradients of a loss through the frame-sharded conv stack
+            and encoder (frame_sharded_encode_conv_stack, the ring LSTM)
+            on its 246 frames against the unsharded encoder's (float32,
+            1e-4 of each max); (iv)
             with two cards or more, two NCCL ranks (chip_smoke.py
             --parallel-rank) running the full-width VAE step sharded dp 2
             (ZeRO) and mp 2 (tensor parallel) in float64 (phase 8's
-            gradient limit), and the halo conv, against one process, each
+            gradient limit), the halo conv, and (iii)'s gradients at 128
+            frames a rank in float64 (1e-10), against one process, each
             state then saved as an orbax checkpoint (each rank its own
             store) and gathered into a msgpack, the two read back equal in
             one process, then `train` through torchrun on two cards against
@@ -267,6 +272,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core peak
@@ -2856,6 +2862,9 @@ LONG_CONTEXT_RTOL = 1e-4  # phase 15 (iii), card against CPU: phase 12's long-co
 CONV_RTOL = 2e-5          # the halo conv against F.conv1d (tests/test_sequence_parallel.py)
 CLI_LOSS_RTOL = 1e-3      # torchrun train's epoch losses against one process's: four Adam
                           # steps, each of which may step a rounding-noise gradient either way
+FRAME_GRAD_RTOL = {torch.float32: 1e-4,   # phase 15 (iii) and (iv): the frame-sharded encoder's
+                   torch.float64: 1e-10}  # gradients against the unsharded encoder's, each over
+                                          # its max (tests/test_torch_port_sequence_parallel.py)
 
 
 def mesh_step_against_plain(card, dev):
@@ -3014,20 +3023,126 @@ def long_context_mesh(card, dev):
 
 
 
+def frame_sharded_encoder(x, model, mesh):
+    """This rank's (B, T_local, 2 * dim_neck) biLSTM output of the encoder
+    on its frames x (B, n_mels, T_local): frame_sharded_encode_conv_stack,
+    then every LSTM direction through sequence_sharded_lstm, as
+    models/long_context.py runs them, without its gather."""
+    from dvc_tpu_torch.parallel.sequence import (frame_sharded_encode_conv_stack,
+                                                 sequence_sharded_lstm)
+    h = frame_sharded_encode_conv_stack(x, model, mesh).transpose(1, 2)
+    lstm = model.enc_lstm
+    for layer in range(lstm.num_layers):
+        h = torch.cat([sequence_sharded_lstm(h, *(getattr(lstm, f"{k}_l{layer}{sfx}") for k in
+                                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh")),
+                                             mesh, reverse=rev)[0]
+                       for sfx, rev in (("", False), ("_reverse", True))], -1)
+    return h
+
+
+def encoder_grads(model, x, gs, mesh=None) -> dict:
+    """The gradients of sum(y * g) for y the conv stack's output ("stack")
+    and the biLSTM's ("encoder"), g from gs, with respect to x and every
+    encoder weight: frame-sharded on this rank's frames of x and gs with a
+    mesh (the input's gradient gathered over the ranks, the weights'
+    summed), else the unsharded encoder (Conv1d modules, nn.LSTM).
+    key -> name -> CPU tensor."""
+    from dvc_tpu_torch.parallel.collectives import gather_blocks
+    from dvc_tpu_torch.parallel.mesh import data_rows
+    from dvc_tpu_torch.parallel.sequence import frame_sharded_encode_conv_stack
+
+    def plain_stack(h):
+        for m in model.enc_modules:
+            bn = m[1]
+            h = F.relu(F.batch_norm(m[0](h), bn.running_mean, bn.running_var, bn.weight,
+                                    bn.bias, training=False, eps=bn.eps))
+        return h
+
+    def plain_encoder(h):
+        model.enc_lstm.train()  # cuDNN's LSTM backward wants a training-mode forward (no dropout)
+        try:
+            return model.enc_lstm(plain_stack(h).transpose(1, 2))[0]
+        finally:
+            model.enc_lstm.eval()
+
+    cols = slice(None) if mesh is None else data_rows(x.shape[-1], mesh)
+    fns = ({"stack": plain_stack, "encoder": plain_encoder} if mesh is None else
+           {"stack": lambda h: frame_sharded_encode_conv_stack(h, model, mesh),
+            "encoder": lambda h: frame_sharded_encoder(h, model, mesh)})
+    out = {}
+    for key, fn in fns.items():
+        model.zero_grad()
+        xi = x[..., cols].clone().requires_grad_()
+        g = gs[key][..., cols] if key == "stack" else gs[key][:, cols]
+        (fn(xi) * g).sum().backward()
+        dx = xi.grad if mesh is None else gather_blocks(xi.grad, 2, mesh.data_group)
+        out[key] = {"x": dx.cpu(), **{n: p.grad.cpu() for n, p in model.named_parameters()
+                                      if p.grad is not None}}
+    model.zero_grad()
+    return out
+
+
+def frame_grad_inputs(cfg, dev, dtype):
+    """The 246-frame utterance of long_context_mesh, zero-padded to 4
+    chunks as whole_utterance_encode pads it, and the seeded output
+    gradients of encoder_grads' two losses."""
+    mel = np.random.RandomState(17).rand(1, 80, 4 * cfg.frames - 10)
+    x = F.pad(torch.from_numpy(mel), (0, 10)).to(dev, dtype)
+    g = torch.Generator().manual_seed(23)
+    gs = {"stack": torch.randn(1, cfg.enc_channels, 4 * cfg.frames, generator=g, dtype=torch.float64),
+          "encoder": torch.randn(1, 4 * cfg.frames, 2 * cfg.dim_neck, generator=g,
+                                 dtype=torch.float64)}
+    return x, {k: v.to(dev, dtype) for k, v in gs.items()}
+
+
+def grad_errs(got: dict, want: dict) -> dict:
+    """key -> the worst max |diff| over max |want| of its gradients, and
+    their count."""
+    return {k: (max(rel_err(got[k][n], w) for n, w in want[k].items()), len(want[k]))
+            for k in want}
+
+
+def frame_sharded_grad(card, dev):
+    """Phase 15 (iii), after long_context_mesh: the gradient through the
+    frame-sharded conv stack and the frame-sharded encoder (the ring LSTM's
+    autograd Function wherever a group has two or more ranks; here one),
+    full VAEConfig, on the 246-frame utterance padded to 256, against the
+    unsharded encoder's on the card, float32."""
+    from dvc_tpu_torch.config import MeshConfig, VAEConfig
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    cfg = VAEConfig()
+    model = seeded(lambda: DisentangledVAE(cfg), SEED + 42).eval().to(dev)
+    x, gs = frame_grad_inputs(cfg, dev, torch.float32)
+    errs = grad_errs(encoder_grads(model, x, gs, make_mesh(MeshConfig(), dev)),
+                     encoder_grads(model, x, gs))
+    lim = FRAME_GRAD_RTOL[torch.float32]
+    print(f"frame-sharded encoder gradient [{card}] one-rank NCCL group, full width, "
+          f"{tuple(x.shape)} (the 246-frame utterance padded), float32, against the unsharded "
+          f"encoder on the card: " + ", ".join(
+              f"{k} {e:.3e} over {n} gradients" for k, (e, n) in errs.items())
+          + f" (limit {lim}); {time.perf_counter() - t0:.2f} s", flush=True)
+    check(all(e <= lim for e, _ in errs.values()),
+          f"the frame-sharded encoder's gradients differ: {errs}")
+
+
 def parallel_rank(rank: int, work: str) -> int:
     """One of phase 15 (iv)'s two NCCL ranks (``chip_smoke.py --parallel-rank
     <rank> <dir>``): the full-width VAE step at batch 8, sharded dp 2 x mp 1
     (ZeRO) and dp 1 x mp 2 (tensor parallel), in float64 (models built,
     inputs and noise drawn under that default dtype: the float32 gradients
-    are too ill-conditioned for a tight check, phase 12), and the halo conv
-    over the frames; rank 0 holds each against the one-process result and
+    are too ill-conditioned for a tight check, phase 12), the halo conv
+    over the frames, and the frame-sharded encoder's gradients in float64
+    (encoder_grads); rank 0 holds each against the one-process result and
     writes the errors to <dir>/result.json.  After each step the state is
     saved twice (phase 16's two-card part): as an orbax checkpoint, each
     rank writing its own store, and gathered into a msgpack; rank 0 reads
     both back in one process and compares them."""
     import datetime
     import torch.distributed as dist
-    from dvc_tpu_torch.config import Config, MeshConfig, TrainConfig
+    from dvc_tpu_torch.config import Config, MeshConfig, TrainConfig, VAEConfig
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
     from dvc_tpu_torch.parallel.collectives import gather_blocks
     from dvc_tpu_torch.parallel.mesh import Shard, data_rows, make_mesh
     from dvc_tpu_torch.parallel.multihost import initialize_distributed
@@ -3076,9 +3191,17 @@ def parallel_rank(rank: int, work: str) -> int:
     cols = data_rows(x.shape[-1], mesh)
     y = sequence_sharded_conv1d(x[..., cols].to(dev), w.to(dev), b.to(dev), mesh)
     y = gather_blocks(y, 2, mesh.data_group).cpu()
+    vcfg = VAEConfig()
+    model = seeded(lambda: DisentangledVAE(vcfg), SEED + 42).eval().to(dev, torch.float64)
+    xg, gs = frame_grad_inputs(vcfg, dev, torch.float64)
+    t0 = time.perf_counter()
+    grads = encoder_grads(model, xg, gs, mesh)
+    sharded_s = time.perf_counter() - t0
     if rank == 0:
         want = torch.nn.functional.conv1d(x.to(dev), w.to(dev), b.to(dev), padding=2).cpu()
         out["halo_conv_err"] = rel_err(y, want)
+        out["frame_grad_errs"] = {**grad_errs(grads, encoder_grads(model, xg, gs)),
+                                  "sharded_s": sharded_s}
         with open(os.path.join(work, "result.json"), "w") as f:
             json.dump(out, f)
     dist.barrier()
@@ -3136,7 +3259,11 @@ def two_card_check(card, work):
     check(all(p.returncode == 0 for p in procs),
           "two-card ranks failed: " + " | ".join(log[-2000:] for log in logs))
     with open(os.path.join(work, "result.json")) as f:
-        res = json.load(f)
+        two_card_report(card, json.load(f))
+
+
+def two_card_report(card, res: dict) -> None:
+    """Print and check parallel_rank's result.json."""
     failed = []
     for key, e in res.pop("orbax").items():
         print(f"two-card orbax save [{card}] {key}: each rank wrote its own store "
@@ -3144,6 +3271,7 @@ def two_card_check(card, work):
               f"equal to the gathered msgpack state: {e['equal']}", flush=True)
         if not (e["equal"] and min(e["stores"]) > 0):
             failed.append(f"orbax {key}")
+    fg, lim = res.pop("frame_grad_errs"), FRAME_GRAD_RTOL[torch.float64]
     for key, e in res.items():
         if not isinstance(e, dict):
             continue
@@ -3156,9 +3284,15 @@ def two_card_check(card, work):
             failed.append(key)
     print(f"two-card halo conv [{card}] (2, 512, 256) frames over 2 ranks, k = 5: "
           f"{res['halo_conv_err']:.3e} of the max (limit {CONV_RTOL})", flush=True)
+    sharded_s = fg.pop("sharded_s")
+    print(f"two-card frame-sharded encoder gradient [{card}] NCCL, full width, the 246-frame "
+          f"utterance padded to 256, 128 frames a rank, float64, against one process: "
+          + ", ".join(f"{k} {e:.3e} over {n} gradients" for k, (e, n) in fg.items())
+          + f" (limit {lim}); the sharded gradients {sharded_s:.2f} s", flush=True)
     check(len(res) == 4 and not failed, f"two-card VAE steps differ from one process: {failed}")
     check(res["halo_conv_err"] <= CONV_RTOL, f"two-card halo conv differs: {res['halo_conv_err']}")
-
+    check(len(fg) == 2 and all(e <= lim for e, _ in fg.values()),
+          f"two-card frame-sharded encoder gradients differ from one process: {fg}")
 
 
 def two_card_cli(card, dev, work):
@@ -3214,6 +3348,7 @@ def parallel_phase(card, dev):
             sharded_lstm_on_card(card, dev)
             ge2e_mesh_step(card, dev)
             long_context_mesh(card, dev)
+            frame_sharded_grad(card, dev)
         finally:
             dist.destroy_process_group()
         if torch.cuda.device_count() >= 2:

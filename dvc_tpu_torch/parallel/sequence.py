@@ -10,7 +10,11 @@ neighbouring ranks (``dist.batch_isend_irecv``, zeros at the global edges),
 so a whole utterance is convolved across ranks with no chunk boundary.
 The LSTM runs its input projection on every shard at once and relays only
 the (h, c) carry.  ``whole_utterance_encode(mesh=...)``
-(models/long_context.py) runs the encoder this way.
+(models/long_context.py) runs the encoder this way.  Both are
+differentiable, as dvc_tpu's are under ``jax.grad``: the halo conv sends
+its halos' gradients back to the neighbours, the LSTM relays its carry's
+gradient back along the ring, and the replicated weights' gradients are
+summed over the axis.
 
 The frames are sharded over the mesh's data axis; a data group of one
 rank (or no group) makes each function its one-device self.
@@ -25,7 +29,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from dvc_tpu_torch.parallel.collectives import group_rank, group_size
+from dvc_tpu_torch.parallel.collectives import group_rank, group_size, reduce_grad
 from dvc_tpu_torch.parallel.mesh import Mesh
 
 
@@ -99,6 +103,9 @@ def sequence_sharded_conv1d(x: torch.Tensor, weight: torch.Tensor,
     return _HaloConv1d.apply(x, weight, bias, group, halo)
 
 
+_LSTM_WEIGHTS = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")
+
+
 def _lstm_chunk(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, weights: dict,
                 reverse: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One LSTM direction over the chunk x (B, T, I) from the carry (h, c),
@@ -110,7 +117,70 @@ def _lstm_chunk(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, weights: dict
     return (out.flip(1) if reverse else out), h[0], c[0]
 
 
-@torch.no_grad()
+def _ring(group: Any, reverse: bool) -> tuple[int | None, int | None, int]:
+    """(the global rank this shard takes its carry from, the one it hands
+    its carry to, the shard that ends the ring); None past either end."""
+    n, i = group_size(group), group_rank(group)
+    ranks = dist.get_process_group_ranks(group)
+    prev, nxt, last = (i + 1, i - 1, 0) if reverse else (i - 1, i + 1, n - 1)
+    return (ranks[prev] if 0 <= prev < n else None,
+            ranks[nxt] if 0 <= nxt < n else None, ranks[last])
+
+
+class _RingLSTM(torch.autograd.Function):
+    """The carry relay with its transpose.  The forward keeps the local
+    chunk's autograd graph where a gradient is wanted; the backward relays
+    the carry's gradient the other way round the ring: the last shard
+    starts from the sum of every rank's gradient of the broadcast final
+    carry, each shard runs its chunk's backward from the gradient it
+    receives and its outputs', and hands the gradient of its initial carry
+    to the shard that sent it."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, w_hh, b_ih, b_hh, group, reverse, grad_enabled):
+        prev, nxt, last = _ring(group, reverse)
+        h0 = x.new_zeros((x.shape[0], w_hh.shape[1]))
+        c0 = torch.zeros_like(h0)
+        if prev is not None:
+            dist.recv(h0, prev, group)
+            dist.recv(c0, prev, group)
+        ins = (x, h0, c0, w_ih, w_hh, b_ih, b_hh)
+        keep = grad_enabled and any(ctx.needs_input_grad[:5])
+        if keep:
+            ins = [t.detach().requires_grad_() for t in ins]
+        with torch.set_grad_enabled(keep):
+            out, h, c = _lstm_chunk(*ins[:3], dict(zip(_LSTM_WEIGHTS, ins[3:])), reverse)
+        ctx.graph = ins, (out, h, c)
+        ctx.ring = group, prev, nxt, last
+        h, c = h.detach().clone(), c.detach().clone()
+        if nxt is not None:
+            dist.send(h, nxt, group)
+            dist.send(c, nxt, group)
+        dist.broadcast(h, last, group)  # the ring's final carry, from its last shard
+        dist.broadcast(c, last, group)
+        return out.detach(), h, c
+
+    @staticmethod
+    def backward(ctx, g_out, g_h, g_c):
+        (ins, outs), (group, prev, nxt, last) = ctx.graph, ctx.ring
+        del ctx.graph
+        g_h, g_c = g_h.contiguous().clone(), g_c.contiguous().clone()
+        # the broadcast's transpose: the final carry's gradient summed on its source
+        dist.reduce(g_h, last, group=group)
+        dist.reduce(g_c, last, group=group)
+        if nxt is not None:  # this shard's final carry went on to the next shard
+            dist.recv(g_h, nxt, group)
+            dist.recv(g_c, nxt, group)
+        gx, gh0, gc0, *gw = torch.autograd.grad(outs, ins, (g_out, g_h, g_c))
+        if prev is not None:
+            dist.send(gh0.contiguous(), prev, group)
+            dist.send(gc0.contiguous(), prev, group)
+        flat = torch.cat([g.reshape(-1) for g in gw])
+        dist.all_reduce(flat, group=group)
+        gw = [g.view_as(w) for g, w in zip(flat.split([w.numel() for w in gw]), gw)]
+        return (gx, *gw, None, None, None)
+
+
 def sequence_sharded_lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                           b_ih: torch.Tensor, b_hh: torch.Tensor, mesh: Mesh,
                           reverse: bool = False
@@ -125,43 +195,36 @@ def sequence_sharded_lstm(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tenso
     Returns (this rank's outputs (B, T_local, H), (h_T, c_T)), the final
     carry replicated on every rank.
 
-    Forward only: its one caller is the whole-utterance encode, an
-    inference path, so it runs without autograd and its outputs carry no
-    gradient (the gradient is queued in ROADMAP.md)."""
+    The backward returns the gradient of the loss summed over the ranks:
+    the carry's gradient is relayed back from shard to shard (shard i
+    starts when shard i + 1 is done), the replicated final carry's
+    gradients are summed on the shard that computed it, and the weights'
+    gradients are summed over the axis, as the halo conv's are.  Under
+    no_grad or inference_mode no graph is kept."""
     group = mesh.data_group
-    n, i = group_size(group), group_rank(group)
-    weights = {"weight_ih_l0": w_ih, "weight_hh_l0": w_hh, "bias_ih_l0": b_ih,
-               "bias_hh_l0": b_hh}
-    h = x.new_zeros((x.shape[0], w_hh.shape[1]))
-    c = torch.zeros_like(h)
-    if n == 1:
-        out, h, c = _lstm_chunk(x, h, c, weights, reverse)
+    if group_size(group) == 1:
+        h = x.new_zeros((x.shape[0], w_hh.shape[1]))
+        weights = dict(zip(_LSTM_WEIGHTS, (w_ih, w_hh, b_ih, b_hh)))
+        out, h, c = _lstm_chunk(x, h, torch.zeros_like(h), weights, reverse)
         return out, (h, c)
-    ranks = dist.get_process_group_ranks(group)
-    prev, nxt, last = (i + 1, i - 1, 0) if reverse else (i - 1, i + 1, n - 1)
-    if 0 <= prev < n:
-        dist.recv(h, ranks[prev], group)
-        dist.recv(c, ranks[prev], group)
-    out, h, c = _lstm_chunk(x, h, c, weights, reverse)
-    h, c = h.contiguous(), c.contiguous()
-    if 0 <= nxt < n:
-        dist.send(h, ranks[nxt], group)
-        dist.send(c, ranks[nxt], group)
-    dist.broadcast(h, ranks[last], group)
-    dist.broadcast(c, ranks[last], group)
+    out, h, c = _RingLSTM.apply(x, w_ih, w_hh, b_ih, b_hh, group, reverse,
+                                torch.is_grad_enabled())
     return out, (h, c)
 
 
-@torch.no_grad()
 def frame_sharded_encode_conv_stack(x: torch.Tensor, model, mesh: Mesh) -> torch.Tensor:
     """The DisentangledVAE encoder's three conv + BatchNorm + relu layers
     on this rank's frames x (B, n_mels, T_local) of a frame-sharded
     utterance, BatchNorm on its running statistics (position-independent,
-    so sharding is exact).  Returns this rank's (B, C, T_local) frames."""
+    so sharding is exact).  Returns this rank's (B, C, T_local) frames.
+    The backward returns the gradient of the loss summed over the ranks:
+    the convs' as sequence_sharded_conv1d's, and BatchNorm's scale and
+    bias gradients summed over the axis."""
+    group = mesh.data_group
     h = x
     for m in model.enc_modules:
         conv, bn = m[0].conv, m[1]
         h = sequence_sharded_conv1d(h, conv.weight, conv.bias, mesh)
-        h = F.relu(F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                                training=False, eps=bn.eps))
+        h = F.relu(F.batch_norm(h, bn.running_mean, bn.running_var, reduce_grad(bn.weight, group),
+                                reduce_grad(bn.bias, group), training=False, eps=bn.eps))
     return h

@@ -229,12 +229,93 @@ def scenario_dp2(inp: dict, rank: int, world: int) -> dict:
     return out
 
 
+def frame_sharded_encoder(x: torch.Tensor, model, mesh) -> torch.Tensor:
+    """This rank's (B, T_local, 2 * dim_neck) biLSTM output of the encoder
+    on its frames x (B, n_mels, T_local): the conv stack and every LSTM
+    direction frame-sharded, as models/long_context.py runs them, without
+    the gather."""
+    from dvc_tpu_torch.parallel.sequence import (frame_sharded_encode_conv_stack,
+                                                 sequence_sharded_lstm)
+    h = frame_sharded_encode_conv_stack(x, model, mesh).transpose(1, 2)
+    lstm = model.enc_lstm
+    for layer in range(lstm.num_layers):
+        h = torch.cat([sequence_sharded_lstm(h, *(getattr(lstm, f"{k}_l{layer}{sfx}") for k in
+                                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh")),
+                                             mesh, reverse=rev)[0]
+                       for sfx, rev in (("", False), ("_reverse", True))], -1)
+    return h
+
+
+def _sequence_grads(inp: dict, rank: int, world: int, mesh) -> dict:
+    """Each dtype's gradients on this rank: the ring LSTM both ways (its
+    outputs' loss and the replicated final carry's, the carry's part taken
+    1 / world on every rank), the conv stack and the whole frame-sharded
+    encoder, each of a sum(y * g) loss over this rank's frames."""
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.parallel.sequence import (frame_sharded_encode_conv_stack,
+                                                 sequence_sharded_lstm)
+    out = {}
+    for name, g in inp["grad"].items():
+        res = out[name] = {}
+        lstm = g["lstm"]
+        t = lstm["x"].shape[1] // world
+        cols = slice(rank * t, (rank + 1) * t)
+        for rev in (False, True):
+            x = _t(lstm["x"][:, cols]).requires_grad_()
+            ws = [_t(w).requires_grad_() for w in lstm["w"]]
+            y, (h, c) = sequence_sharded_lstm(x, *ws, mesh, reverse=rev)
+            ((y * _t(lstm["gy"][:, cols])).sum()
+             + ((h * _t(lstm["gh"])).sum() + (c * _t(lstm["gc"])).sum()) / world).backward()
+            res[f"lstm_{rev}"] = {"y": y.detach(), "dx": x.grad, "dw": [w.grad for w in ws]}
+        model = DisentangledVAE(inp["vae_cfg"])
+        model.load_state_dict(inp["vae_sd"])
+        model.to(torch.float64 if name == "float64" else torch.float32).eval()
+        t = g["mel"].shape[-1] // world
+        cols = slice(rank * t, (rank + 1) * t)
+        for key, fn, axis in (("stack", frame_sharded_encode_conv_stack, 2),
+                              ("enc", frame_sharded_encoder, 1)):
+            model.zero_grad()
+            x = _t(g["mel"][..., cols]).requires_grad_()
+            y = fn(x, model, mesh)
+            gy = _t(g[f"g_{key}"]).narrow(axis, rank * t, t)
+            (y * gy).sum().backward()
+            res[key] = {"dx": x.grad, "dw": {n: p.grad.clone() for n, p in
+                                             model.named_parameters() if p.grad is not None}}
+    return out
+
+
+def _inference_callers(inp: dict, mesh) -> dict:
+    """whole_utterance_encode(mesh) and convert_mel_long_context(mesh) on
+    the tiny VAE, and the encode's frame-sharded forward run again with
+    autograd on (the ring's autograd Function), for the tests to hold
+    bit-equal."""
+    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
+    from dvc_tpu_torch.models.long_context import (_frame_sharded_encode,
+                                                   convert_mel_long_context,
+                                                   whole_utterance_encode)
+    from dvc_tpu_torch.parallel.collectives import gather_blocks
+    from dvc_tpu_torch.parallel.mesh import data_rows
+    model = DisentangledVAE(inp["vae_cfg"])
+    model.load_state_dict(inp["vae_sd"])
+    model.eval()
+    whole = whole_utterance_encode(inp["vae_cfg"], model, inp["mel"], mesh)
+    x = _t(inp["mel"])
+    with torch.inference_mode():
+        h_inf = _frame_sharded_encode(model, x, mesh)
+    h_grad = frame_sharded_encoder(x[..., data_rows(x.shape[-1], mesh)], model, mesh)
+    return {"whole": [a.clone() for a in whole],
+            "graphs": [a.grad_fn is not None or a.requires_grad for a in (*whole, h_inf)],
+            "autograd_path": h_grad.grad_fn is not None,
+            "h_inf": h_inf.clone(), "h_grad": gather_blocks(h_grad.detach(), 1, mesh.data_group),
+            "convert": convert_mel_long_context(model, inp["mel"][0], inp["mel"][1],
+                                                inp["vae_cfg"].frames, mesh)}
+
+
 def scenario_seq4(inp: dict, rank: int, world: int) -> dict:
     """Frame-sharded halo convs (and their gradients), the carry-relay LSTM
-    both ways, and whole_utterance_encode over 4 ranks."""
+    both ways, whole_utterance_encode over 4 ranks, and the gradients of
+    _sequence_grads."""
     from dvc_tpu_torch.config import MeshConfig
-    from dvc_tpu_torch.models.disentangled_vae import DisentangledVAE
-    from dvc_tpu_torch.models.long_context import whole_utterance_encode
     from dvc_tpu_torch.parallel.mesh import make_mesh
     from dvc_tpu_torch.parallel.sequence import sequence_sharded_conv1d, sequence_sharded_lstm
     mesh = make_mesh(MeshConfig(), "cpu")
@@ -253,14 +334,22 @@ def scenario_seq4(inp: dict, rank: int, world: int) -> dict:
         ys, (h, c) = sequence_sharded_lstm(_t(lx[:, rank * t:(rank + 1) * t]),
                                            *map(_t, inp["lstm"]["w"]), mesh, reverse=rev)
         out[f"lstm_{rev}"] = {"y": ys, "h": h, "c": c}
-    model = DisentangledVAE(inp["vae_cfg"])
-    model.load_state_dict(inp["vae_sd"])
-    out["whole"] = [a.clone() for a in whole_utterance_encode(inp["vae_cfg"], model.eval(),
-                                                              inp["mel"], mesh)]
+    out.update(_inference_callers(inp, mesh))
+    out["grad"] = _sequence_grads(inp, rank, world, mesh)
     return out
 
 
-SCENARIOS = {"vae4": scenario_vae4, "dp2": scenario_dp2, "seq4": scenario_seq4}
+def scenario_seq2(inp: dict, rank: int, world: int) -> dict:
+    """The gradients of _sequence_grads, and the inference callers, over 2
+    ranks."""
+    from dvc_tpu_torch.config import MeshConfig
+    from dvc_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(MeshConfig(), "cpu")
+    return {**_inference_callers(inp, mesh), "grad": _sequence_grads(inp, rank, world, mesh)}
+
+
+SCENARIOS = {"vae4": scenario_vae4, "dp2": scenario_dp2, "seq4": scenario_seq4,
+             "seq2": scenario_seq2}
 
 
 def main(argv: list[str]) -> int:
