@@ -1,0 +1,3 @@
+"""Idle share of the device over the serving window (metrics/_idle.py)."""
+
+from port_bench.metrics._idle import idle_percent as read  # noqa: F401
