@@ -18,9 +18,12 @@ import glob
 import os
 import queue
 import threading
+import time
 from typing import Iterator
 
 import numpy as np
+
+from dvc_tpu_torch.utils.profiling import interval
 
 
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
@@ -30,7 +33,8 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
 
     Exceptions from the wrapped iterator re-raise in the CONSUMER — a
     worker-thread error must fail the training loop, not silently end the
-    epoch early."""
+    epoch early.  The consumer's wait for each item is a ``train.data_wait``
+    span (utils/profiling.py)."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     done = object()
 
@@ -46,11 +50,13 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
+        t0 = time.time_ns()
         err, item = q.get()
         if err is not None:
             raise err
         if item is done:
             return
+        interval("train.data_wait", t0, time.time_ns())
         yield item
 
 

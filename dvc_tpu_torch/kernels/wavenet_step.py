@@ -56,6 +56,7 @@ from dvc_tpu_torch.config import VocoderConfig
 from dvc_tpu_torch.kernels import _build
 from dvc_tpu_torch.models.wavenet import WaveNet, sample_from_mol
 from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+from dvc_tpu_torch.utils.profiling import span
 
 SQRT_HALF = math.sqrt(0.5)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -66,6 +67,7 @@ STATIC_SMEM = 1_024  # of which the plan sets aside for the kernel's static arra
 MAX_TILE = 8         # batch rows per pass through the weights
 MAX_PAIRS = 4        # gate pairs a block: the 8 warps split evenly over its pairs
 SEGS = 4             # int8 w_in scale segments
+STAMP_STEPS = 1 << 17  # steps a traced launch stamps at most (105 MB at 24 layers)
 
 _PACK_CACHE: dict = {}
 
@@ -486,10 +488,37 @@ def wavenet_generate(packed: dict, cond: torch.Tensor, seed: int = 0,
     kernel (the whole batch in one call; the pack's dtypes pick its
     instantiation, ``block_plan`` its split over the card's SMs) or raises;
     on a CPU tensor it runs wavenet_generate_plain.  deterministic=True takes
-    the argmax mixture's mean instead of sampling."""
+    the argmax mixture's mean instead of sampling.
+
+    The launch is the span ``vocoder.sample``.  While it records (a
+    torch.profiler records), the launch also stamps block 0's clock at each
+    phase end of every step (of the first STAMP_STEPS, a cap for memory
+    only), waits for them and adds their ``stamp_cycles``, reduced on the
+    device, to the span; otherwise it passes no stamp buffer."""
     if cond.device.type == "cpu":
         return wavenet_generate_plain(packed, cond, seed, deterministic)
-    return _launch(packed, cond, seed, deterministic, False, 0)[0]
+    with span("vocoder.sample") as rec:
+        steps = min(cond.shape[1], STAMP_STEPS) if rec is not None else 0
+        out, _, stamps = _launch(packed, cond, seed, deterministic, False, steps)
+        if steps:
+            rec.update(stamp_cycles(stamps, _dims(packed)[0]))
+    return out
+
+
+def stamp_cycles(stamps: torch.Tensor, layers: int) -> dict[str, int]:
+    """SM cycles of block 0 over the stamped steps of a launch, from its
+    (steps, 4 L + 4) stamps (per step: the start, then per layer the ends
+    of phase in, barrier (a), phase out and barrier (b), then of final1, its
+    barrier and the head): ``barrier_cycles`` in the 2 L + 1 grid barriers,
+    ``step_cycles`` from each step's start to its head's end.  The first
+    step is left out: it also waits for the resident weights' copies."""
+    s = stamps[1:]
+    i = torch.arange(layers, device=s.device) * 4
+    end = 4 * layers
+    barriers = (s[:, i + 2] - s[:, i + 1]).sum() + (s[:, i + 4] - s[:, i + 3]).sum() \
+        + (s[:, end + 2] - s[:, end + 1]).sum()
+    barrier_cycles, step_cycles = torch.stack([barriers, (s[:, end + 3] - s[:, 0]).sum()]).tolist()
+    return {"barrier_cycles": barrier_cycles, "step_cycles": step_cycles}
 
 
 def wavenet_generate_checked(packed: dict, cond: torch.Tensor, seed: int = 0,
@@ -537,7 +566,8 @@ def _launch(packed: dict, cond: torch.Tensor, seed: int, deterministic: bool,
     fin = torch.empty(b, S, device=dev)
     draws = torch.empty(plan["blocks"], b, t_total, device=dev) if checked else None
     steps = min(stamp_steps, t_total)
-    stamps = torch.zeros(steps, 4 * L + 4, dtype=torch.int64, device=dev) if checked else None
+    stamps = (torch.zeros(steps, 4 * L + 4, dtype=torch.int64, device=dev)
+              if checked or steps else None)
     dil = np.ascontiguousarray(packed["dil"], np.int32)
     cfg: VocoderConfig = packed["cfg"]
     lib = _lib()

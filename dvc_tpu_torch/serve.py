@@ -24,11 +24,19 @@ Three services share the queue and worker: ConversionService (the VAE latent
 swap), ProfileTransferService (``serve --profile_transfer``, the model-free
 DSP route) and WorldConversionService (``serve --pipeline world``, the
 MCC-VAE on WORLD features, analyzed and synthesized on the device).
+
+While a torch.profiler records, a request records spans
+(utils/profiling.py) that carry its ``rid``: ``serve.front_end``,
+``serve.queue`` (from entering the queue to the start of its drain's work,
+the batching window included) and ``serve.reply``; a ConversionService
+drain records ``serve.vae``, and the WaveNet vocoder's launch
+``vocoder.sample``.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
 import queue
@@ -52,6 +60,7 @@ from dvc_tpu_torch.ops.stft import num_frames
 from dvc_tpu_torch.ops.world import (cheaptrick_fft_size, logf0_statistics, mc2sp, mcepalpha,
                                      pitch_conversion, synthesize_batch, world_decompose_batch)
 from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+from dvc_tpu_torch.utils.profiling import interval, span
 from dvc_tpu_torch.utils.wavio import parse_wav, wav_bytes
 
 
@@ -66,6 +75,16 @@ def _bucket(n: int) -> int:
     return b
 
 
+_RIDS = itertools.count(1)
+_handling = threading.local()  # .rid: the request an HTTP handler thread serves
+
+
+def _request_id() -> int:
+    """The id the HTTP handler drew for the request its thread serves (its
+    spans carry it), else a new one."""
+    return getattr(_handling, "rid", None) or next(_RIDS)
+
+
 @dataclass
 class _Request:
     payload: np.ndarray                   # mel (80, T), or a 16 kHz wav (N,)
@@ -75,6 +94,8 @@ class _Request:
     error: BaseException | None = None
     abandoned: bool = False               # submit timed out; skip the work
     t_submit: float = field(default_factory=time.monotonic)
+    rid: int = field(default_factory=_request_id)
+    t_queued_ns: int = field(default_factory=time.time_ns)  # made as it enters the queue
 
 
 class _MicroBatchService:
@@ -159,6 +180,9 @@ class _MicroBatchService:
     def _run(self):
         while True:
             batch = self._drain()
+            t = time.time_ns()
+            for r in batch:  # each request's wait, the batching window included
+                interval("serve.queue", r.t_queued_ns, t, rid=r.rid)
             try:
                 self._process(batch)
             except Exception as e:  # the worker must outlive a failed batch
@@ -260,31 +284,33 @@ class ConversionService(_MicroBatchService):
         frames = self._frames
         all_chunks, styles, spans = [], [], []
         offset = 0
-        for r in batch:
-            if r.abandoned:
-                continue
-            try:
-                style = self.target_style(r.trg_spk)
-            except Exception as e:
-                # a per-request failure must not poison co-batched requests
-                self._fail_request(r, e)
-                continue
-            c = chunk_mel(torch.as_tensor(r.payload, dtype=torch.float32,
-                                          device=self.device), frames)
-            spans.append((r, offset, c.shape[0]))
-            offset += c.shape[0]
-            all_chunks.append(c)
-            styles.append(style[None, :].expand(c.shape[0], -1))
-        if not all_chunks:
-            return
-        chunks = torch.cat(all_chunks, 0)
-        style_arr = torch.cat(styles, 0)
-        n = chunks.shape[0]
-        nb = _bucket(max(n, 1))
-        if nb > n:  # pad to the bucket; padded chunks are discarded below
-            chunks = torch.cat([chunks, chunks.new_zeros((nb - n,) + chunks.shape[1:])])
-            style_arr = torch.cat([style_arr, style_arr.new_zeros(nb - n, style_arr.shape[-1])])
-        out = self._convert(chunks, style_arr)[:n].cpu().numpy()
+        with span("serve.vae"):
+            for r in batch:
+                if r.abandoned:
+                    continue
+                try:
+                    style = self.target_style(r.trg_spk)
+                except Exception as e:
+                    # a per-request failure must not poison co-batched requests
+                    self._fail_request(r, e)
+                    continue
+                c = chunk_mel(torch.as_tensor(r.payload, dtype=torch.float32,
+                                              device=self.device), frames)
+                spans.append((r, offset, c.shape[0]))
+                offset += c.shape[0]
+                all_chunks.append(c)
+                styles.append(style[None, :].expand(c.shape[0], -1))
+            if not all_chunks:
+                return
+            chunks = torch.cat(all_chunks, 0)
+            style_arr = torch.cat(styles, 0)
+            n = chunks.shape[0]
+            nb = _bucket(max(n, 1))
+            if nb > n:  # pad to the bucket; padded chunks are discarded below
+                chunks = torch.cat([chunks, chunks.new_zeros((nb - n,) + chunks.shape[1:])])
+                style_arr = torch.cat([style_arr,
+                                       style_arr.new_zeros(nb - n, style_arr.shape[-1])])
+            out = self._convert(chunks, style_arr)[:n].cpu().numpy()
 
         mels, owners = [], []
         for r, start, count in spans:
@@ -561,6 +587,13 @@ def make_http_server(service: _MicroBatchService, host: str = "127.0.0.1",
                 self._json(404, {"error": f"unknown path {path}"})
 
         def do_POST(self):
+            _handling.rid = rid = next(_RIDS)
+            try:
+                self._post(rid)
+            finally:
+                _handling.rid = None
+
+        def _post(self, rid: int):
             parsed = urlparse(self.path)
             if parsed.path != "/convert":
                 self._json(404, {"error": f"unknown path {parsed.path}"})
@@ -583,7 +616,9 @@ def make_http_server(service: _MicroBatchService, host: str = "127.0.0.1",
                 self._json(400, {"error": str(e)})
                 return
             try:
-                out = service.submit(payload_of(np.asarray(wav, np.float32), sr), trg)
+                with span("serve.front_end", rid=rid):
+                    payload = payload_of(np.asarray(wav, np.float32), sr)
+                out = service.submit(payload, trg)
             except KeyError as e:
                 # speaker dir listed but empty, or removed after the check
                 self._json(404, {"error": str(e)})
@@ -594,11 +629,12 @@ def make_http_server(service: _MicroBatchService, host: str = "127.0.0.1",
             except Exception as e:  # reported to the client, server keeps serving
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            if service.output_is_wav:
-                self._send(200, "audio/wav", wav_bytes(out, audio_cfg.sample_rate))
-            else:
-                buf = io.BytesIO()
-                np.save(buf, out)
-                self._send(200, "application/octet-stream", buf.getvalue())
+            with span("serve.reply", rid=rid):
+                if service.output_is_wav:
+                    self._send(200, "audio/wav", wav_bytes(out, audio_cfg.sample_rate))
+                else:
+                    buf = io.BytesIO()
+                    np.save(buf, out)
+                    self._send(200, "application/octet-stream", buf.getvalue())
 
     return ThreadingHTTPServer((host, port), Handler)

@@ -16,6 +16,13 @@ dtype, so every flax layer promotes the bf16 input with its float32
 parameters back to float32 (dvc_tpu/train/trainer.py:53,81-87).  The loss
 is taken against the unrounded inputs.
 
+While a torch.profiler records, an epoch records spans
+(utils/profiling.py): each batch's ``train.data_wait`` (data/dataset.py's
+``prefetch``), ``train.h2d``, ``train.forward`` (forward and loss),
+``train.backward`` (``zero_grad`` and the backward) and
+``train.optimizer``, then one ``train.epoch_tail`` (the re-pairing and the
+loss totals' read-back).
+
 ``TrainConfig.remat`` recomputes the pair forward in the backward pass
 (``torch.utils.checkpoint`` over the region dvc_tpu wraps in
 ``jax.checkpoint``); ``LossConfig.adv_cof`` > 0 trains the speaker
@@ -67,6 +74,7 @@ from dvc_tpu_torch.parallel.tensor import MeshAdam, gather_full_, scatter_full_,
 from dvc_tpu_torch.train import checkpoint as ckpt_lib
 from dvc_tpu_torch.train.losses import LossTerms, gvae_pair_loss
 from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+from dvc_tpu_torch.utils.profiling import span
 
 NOT_PORTED = "not yet ported — see ROADMAP.md"
 
@@ -153,11 +161,14 @@ def make_train_step(model: DisentangledVAE, optimizer: torch.optim.Optimizer,
 
     def step(x1: torch.Tensor, x2: torch.Tensor,
              generator: torch.Generator | None = None, eps=None) -> LossTerms:
-        outs = forward(x1, x2, generator, eps)
-        terms = gvae_pair_loss(x1, x2, *outs, mse_cof=mse_cof, kl_cof=kl_cof)
-        optimizer.zero_grad(set_to_none=True)
-        terms.total.backward()
-        optimizer.step()
+        with span("train.forward"):
+            outs = forward(x1, x2, generator, eps)
+            terms = gvae_pair_loss(x1, x2, *outs, mse_cof=mse_cof, kl_cof=kl_cof)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            terms.total.backward()
+        with span("train.optimizer"):
+            optimizer.step()
         return LossTerms(*(t.detach() for t in terms))
 
     return step
@@ -405,8 +416,9 @@ class Trainer:
         n_batches = 0
         for x1, x2, spk in prefetch(dataset.batches(self._effective_batch_size(dataset))):
             if self.mesh is None:
-                spk = torch.from_numpy(np.asarray(spk, np.int64)).to(self.device)
-                x1, x2 = self._to_device(x1), self._to_device(x2)
+                with span("train.h2d"):
+                    spk = torch.from_numpy(np.asarray(spk, np.int64)).to(self.device)
+                    x1, x2 = self._to_device(x1), self._to_device(x2)
             else:  # every rank walked the same batch: keep this rank's rows
                 if n_batches == 0:
                     self._check_same_batch(x1, x2, spk)
@@ -414,8 +426,9 @@ class Trainer:
             terms = self.step_on(x1, x2, spk)
             totals += torch.stack([*terms, *self.adv_metrics.values()]).to(torch.float64)
             n_batches += 1
-        dataset.shuffle_data()  # re-pair utterances (reference :96)
-        out = dict(zip(keys, totals.tolist()))
+        with span("train.epoch_tail"):
+            dataset.shuffle_data()  # re-pair utterances (reference :96)
+            out = dict(zip(keys, totals.tolist()))
         out["n_batches"] = n_batches
         return out
 
