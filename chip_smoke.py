@@ -37,9 +37,10 @@ Phases; any failure exits non-zero before a result line is printed:
             the kernels line (which gives each entry's steps), the bf16
             kernel over all its steps too;
   5. plan    each dtype's block plan (blocks, rows a block, row tile,
-            resident layers and bytes) and the barrier floor; us per sample
-            step for bf16 and int8 at B in {1, 3, 4, 8}, beside the per-launch
-            design's; the share of each phase in block 0's cycles;
+            resident layers and bytes) and the exchanges a step; us per
+            sample step for bf16 and int8 at B in {1, 3, 4, 8, 64}, beside the
+            per-launch design's; the share of each phase and of each
+            exchange's wait in block 0's cycles;
   6. int8   int8 weight streaming (the port of the TPU's quantized streamed
             kernel): (i) the fine check at a narrow width (8 layers, 64
             channels, final1 in float32, first_conv zeroed so the sampled
@@ -306,7 +307,6 @@ MAIN_NOFB_RMS = 0.0105  # the main path's shape, feedback cut, against the open-
 NARROW = dict(layers=8, stacks=2, residual_channels=64, gate_channels=64,
               skip_out_channels=32)  # int8-aligned: R, C = 80 and G/2 whole vectors
 SEED = 0
-BARRIER_US = 1.14  # one grid barrier on an H100 (tools/ablate_body, PERF.md section 6)
 PREV_US = {  # us per sample step of the per-launch design (T x (2L + 2) launches), PERF.md
     ("bfloat16", 1): 322.4, ("bfloat16", 3): 469.5, ("bfloat16", 4): 551.5,
     ("int8", 1): 301.3, ("int8", 3): 424.6, ("int8", 4): 494.0}
@@ -476,15 +476,16 @@ def profile(fn, card, name, steps):
 
 
 def phase_split(stamps, layers) -> dict[str, float]:
-    """Share of block 0's SM cycles by phase over the stamped steps of a
-    wavenet_generate_checked call (the first step left out: it also waits
-    for the resident weights' copies)."""
+    """Share of block 0's SM cycles by phase, and by the wait for each
+    exchange's words (gated, h or the skip sum, fin), over the stamped steps
+    of a wavenet_generate_checked call (the first step left out: it also
+    waits for the resident weights' copies)."""
     s = stamps[1:].double()
     i = torch.arange(layers, device=s.device) * 4
     end = 4 * layers
-    spans = {"in": (i, i + 1), "barrier (a)": (i + 1, i + 2), "out": (i + 2, i + 3),
-             "barrier (b)": (i + 3, i + 4), "final1": ([end], [end + 1]),
-             "barrier (final1)": ([end + 1], [end + 2]), "head": ([end + 2], [end + 3])}
+    spans = {"in": (i, i + 1), "wait (gated)": (i + 1, i + 2), "out": (i + 2, i + 3),
+             "wait (h, skip)": (i + 3, i + 4), "final1": ([end], [end + 1]),
+             "wait (fin)": ([end + 1], [end + 2]), "head": ([end + 2], [end + 3])}
     cyc = {k: (s[:, b] - s[:, a]).sum().item() for k, (a, b) in spans.items()}
     total = sum(cyc.values())
     return {k: v / total for k, v in cyc.items()}
@@ -3806,12 +3807,10 @@ def main() -> int:
               f"layers resident, {pl['resident_bytes']} B of weights, scales and biases "
               f"resident a block ({pl['smem_bytes']} B of shared memory); "
               f"{pl['streamed_bytes_per_step'] / 1e6:.1f} MB a step streamed", flush=True)
-    n_bar = 2 * vcfg.layers + 1
-    print(f"barrier floor: {n_bar} grid barriers a step x {BARRIER_US} us = "
-          f"{n_bar * BARRIER_US:.1f} us a sample step", flush=True)
+    print(f"exchanges: {2 * vcfg.layers + 1} a sample step, no grid barrier", flush=True)
     sweep = {}
     for name, pk in (("bfloat16", packed), ("int8", q8)):
-        for b in (1, 3, 4, 8):
+        for b in (1, 3, 4, 8, 64):
             g = torch.Generator(device=dev).manual_seed(50 + b)
             frames = torch.rand(b, 1024 // det.hop, vcfg.cin_channels, device=dev, generator=g)
             with torch.inference_mode():

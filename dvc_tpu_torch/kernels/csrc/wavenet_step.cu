@@ -29,9 +29,13 @@
 // What bounds it on an H100.  A sample step is 24 x (786,432 + 40,960 +
 // 65,536 + 131,072) = 24.58 M multiply-adds per batch row: 2.45 ms of
 // tensor-core work (989 TFLOP/s) for cond (3, 16384, 80), the operation
-// bound.  The step is a chain of 2L + 1 = 49 dependent phases, each ending
-// in a grid barrier of about 1.14 us on this card (tools/ablate_body), so
-// the barriers alone cost about 56 us a step: the floor of this design.
+// bound.  The step is a chain of 2L + 1 = 49 dependent exchanges between the
+// blocks: every block needs all of a phase's output before its next phase.
+// At small B latency sets the step, not work.  An exchange costs the
+// producer's store reaching L2 and the reader's load bringing it back, one
+// to one and a half L2 round trips: the floor of this design (a grid
+// barrier in its place cost about 1.14 us on this card, tools/ablate_body,
+// and the load after it one more round trip).
 // The weights are 49.2 MB in bf16, 98.3 MB in float32 and 24.6 MB of int8
 // codes (+0.27 MB of scales); the TPU kept them in VMEM.  Here each block
 // keeps its own rows in shared memory (227 KB a block, 29.7 MB over 128
@@ -59,32 +63,94 @@
 // sample step:
 //   in     stage [x_{t-2d} | x_{t-d} | h | c_t] of a row tile once, in the
 //          activation dtype (all of a thread's 16-byte loads in flight
-//          before the first store), then the dots: the threads of a gate
-//          pair split its 4-element chunks and each dots both of the pair's
-//          rows, so a staged chunk is read once for both; the gate
-//          tanh(a) * sigmoid(g) into `gated`;               grid barrier (a)
-//   out    stage `gated` once; one warp per skip/out row.  The skip sums and
-//          the layer inputs h of the block's own rows live in shared memory
-//          for the whole step; h is published for the next layer's `in`,
-//          the skip only after the last layer; the ring slot of x_{t-2d}
-//          takes h after barrier (a), when every block has staged it;
-//                                                           grid barrier (b)
-//   final1 relu -> final1 -> relu for the block's columns;  grid barrier
+//          before the first store; h waits for its words), then the dots:
+//          the threads of a gate pair split its 4-element chunks and each
+//          dots both of the pair's rows, so a staged chunk is read once for
+//          both; the gate tanh(a) * sigmoid(g) published as `gated` words;
+//   out    stage `gated` once it has arrived; one warp per skip/out row.
+//          The skip sums and the layer inputs h of the block's own rows live
+//          in shared memory for the whole step; the ring slot of x_{t-2d}
+//          takes h; then h is published for the next layer's `in`, the skip
+//          sum only after the last layer;
+//   final1 relu -> final1 -> relu for the block's columns, published as fin;
 //   head   every block computes final2 and the MoL draw of every batch row
 //          itself and forms the next sample's h = x * w_first + b_first for
-//          its own rows; block 0 writes the output.  No barrier: the next
-//          layer 0 reads only block-local data and the ring.
-// The blocks agree bit for bit on every draw: each reads the same fin from
-// L2 after the barrier, sums final2 in the same order (lane-strided FMAs,
-// then a butterfly warp sum) and draws Philox4x32-10 numbers keyed by
-// (seed, t, row), counter (draw, t, row, which), that depend on nothing
-// else.  A check run passes `draws` and every block writes its draws there,
-// and `stamps`, where block 0 writes its SM clock at every phase's end.
-// Data written inside the kernel is read through L2 (ld.global.cg); the
-// weights through cp.async; the ring is zeroed by the kernel before the
-// first barrier, so a call is exactly one launch.
+//          its own rows; block 0 writes the output.  The next layer 0 reads
+//          only block-local data and the ring.
+// The blocks agree bit for bit on every draw: each reads the same fin words,
+// sums final2 in the same order (lane-strided FMAs, then a butterfly warp
+// sum) and draws Philox4x32-10 numbers keyed by (seed, t, row), counter
+// (draw, t, row, which), that depend on nothing else.  A check run passes
+// `draws` and every block writes its draws there; a stamped run passes
+// `stamps`, where block 0 writes its SM clock at the end of each phase's
+// compute and publication and when the words its next phase reads have all
+// matched (4 L + 4 a step), and `counts`, where block 0 tallies its
+// exchanges and those whose words had all arrived at its first read.  The
+// ring is read through L2 (ld.global.cg), the weights through cp.async; the
+// kernel zeroes the ring and the exchange words before its one grid barrier,
+// so a call is exactly one launch.
 // Ring taps follow the TPU kernel (:340-342): tap_2d = off + (t mod 2d),
 // tap_d = off + ((t mod 2d) + d) mod 2d.
+//
+// The exchange.  No grid barrier runs inside the step loop: a phase's output
+// is published in 8-byte words, each 4 bytes of payload (two bf16 or one
+// float32, in the order of the plain row) beside a 32-bit tag that names the
+// exchange, tag = t (2 L + 1) + e + 1 with e = 2 l for layer l's gated,
+// 2 l + 1 for its h (after the last layer: the skip sum) and 2 L for fin:
+// unique within a launch and never 0 (the caller refuses T (2 L + 1) >=
+// 2^32).  A writer stores whole words (st.relaxed.gpu.u64) into each of
+// kCopies copies of the buffer; a reader polls the copy of its block's index
+// (blocks sharing a copy's lines are fewer), loading two words at a time
+// (ld.relaxed.gpu.v2.u64) and again those whose tag is not yet the one it
+// expects, then stages the payloads as the plain rows were staged.  A word
+// is one single-copy-atomic access, so its tag vouches for its payload.  The
+// words are zero (tag 0) before the loop.  Every poll traps after kSpinLimit
+// reloads instead of hanging, and the launch stays cooperative: a block
+// spins on others, which must be resident.  A word carries two bf16 only
+// from one block, so the plan gives a block whole words: an even number of
+// gate pairs and of skip/out rows wherever their type is bf16.
+//   What the chip showed (PERF.md §6): a poll's round trip grows about
+// 150 cycles with every further 16-byte load its thread has in flight, so
+// the staging spreads the polls: gated, the skip sum and fin one (row,
+// chunk) a thread, h a chunk of half the rows; an acquire load (it
+// serialized the two loads of a unit) or a fence on the path to a store each
+// cost more than they saved, hence the fence's place below.
+//
+// Reuse without barriers.  Each argument is a chain in which a load's value
+// decides a later store (no store overtakes the load it waits on):
+//   h      one buffer.  A block rewrites its h words for layer l + 1 only
+//          after it has read all of layer l + 1's gated, and every block
+//          publishes gated only after its loads of layer l's h returned.
+//   gated  two halves, taking turns by the index t L + l.  One buffer would
+//          not do: the blocks that own only skip rows publish no h, so a
+//          block could read all of layer l + 1's h and rewrite gated while
+//          such a block still stages layer l's.  With two, rewriting a half
+//          (index k + 2) waits for the h of index k + 1 (across a step: fin),
+//          which waits for every block's gated of k + 1, which each block
+//          publishes after its loads of k returned.
+//   skip   one buffer: a block's next skip words wait for the next step's
+//          last gated, which every block publishes after its head, after its
+//          final1 staged this skip sum.
+//   fin    one buffer: the next fin waits for the next skip sum, which waits
+//          for the last gated, which every block publishes after its head.
+//   ring   plain, as before: its slots, bytes and layout are unchanged.  WAR:
+//          a block writes slot x_{t-2d} of layer l in `out` after reading
+//          every block's gated of layer l, which each block publishes after
+//          its loads of that slot returned.  RAW: every thread runs
+//          fence.acq_rel.gpu at the start of each `in`, where the block
+//          waits for h anyway.  As a release it follows the __syncthreads
+//          after the block's ring writes in the last `out` and precedes the
+//          gated words its combining threads store (the fence is cumulative);
+//          as an acquire it follows the thread's loads of the gated words in
+//          the last `out`.  A slot written in `out` of layer l at step t is
+//          read d >= 1 steps later, and by then every reader has acquired the
+//          writer's next gated (layer l + 1's, or after the last layer the
+//          next step's layer 0's), which every block publishes in every
+//          layer, at a fence with a __syncthreads before that read: with
+//          L >= 3 layers the fence after reading layer l + 1's gated (or the
+//          next step's layer 0's) is in an earlier `in` than the read's.  So
+//          the ring's writes are seen under the PTX memory model, not by
+//          timing.
 //
 // One template over (layer weight W, activation and ring A, final1 weight F)
 // covers every pack: <float, float, float>, <bf16, bf16, bf16>, and for int8
@@ -110,6 +176,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTile = 8;           // batch rows per pass through the weights
@@ -117,6 +185,8 @@ constexpr int kMaxLayers = 64;
 constexpr int kMaxSmem = 232448;      // H100: 227 KB of shared memory a block
 constexpr int kStaticReserve = 1024;  // static shared memory the plan sets aside
 constexpr int kSegs = 4;              // int8 w_in row segments: x_{t-2d}, x_{t-d}, h, cond
+constexpr long long kSpinLimit = 1ll << 24;  // reloads before a poll traps instead of hanging
+constexpr int kCopies = 8;  // copies of every exchange word; block k reads copy k % kCopies
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 
 template <typename T>
@@ -127,6 +197,8 @@ struct Cvt<float> {
   static constexpr int kVec = 4;  // elements in 16 bytes
   static constexpr bool kScaled = false;
   static __device__ __forceinline__ float from(float v) { return v; }
+  // from(v) as the bits an exchange word carries
+  static __device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
   // elements 4c .. 4c + 3 of row w, as floats
   static __device__ __forceinline__ void unpack4(const float* w, int c, float* o) {
     const float4 f = reinterpret_cast<const float4*>(w)[c];
@@ -143,6 +215,9 @@ struct Cvt<__nv_bfloat16> {
   static constexpr bool kScaled = false;
   // round to nearest even, as jnp .astype(bfloat16) and torch .to(bfloat16)
   static __device__ __forceinline__ __nv_bfloat16 from(float v) { return __float2bfloat16(v); }
+  static __device__ __forceinline__ uint32_t bits(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16(v));
+  }
   static __device__ __forceinline__ void unpack4(const __nv_bfloat16* w, int c, float* o) {
     const uint2 u = reinterpret_cast<const uint2*>(w)[c];  // element 2i is the low half
     o[0] = __uint_as_float(u.x << 16);
@@ -251,17 +326,51 @@ struct Params {
   const float* b_f2;     // (K,)
   const float* cond;     // (B, T, C)
   void* ring;            // (slots, B, R) A
-  void* h;               // (B, R) A: the next layer's input, published by its owners
-  void* skip;            // (B, S) F: F(relu(skip sum)), published after the last layer
-  void* gated;           // (B, G/2) A
-  float* fin;            // (B, S): relu(final1)
+  // exchange words (8 bytes: 4 of payload, a 32-bit tag), rows of words_of<T>(n),
+  // kCopies copies of each buffer, copy_* words apart
+  u64* h;                // (B, R) A: the next layer's input, published by its owners
+  u64* skip;             // (B, S) F: F(relu(skip sum)), published after the last layer
+  u64* gated;            // (2, B, G/2) A: the layers' exchanges take the halves in turn
+  u64* fin;              // (B, S) float32: relu(final1)
+  size_t copy_h, copy_skip, copy_gated, copy_fin;
   float* out;            // (B, T)
   float* draws;          // (blocks, B, T) or null: every block's draws (check runs)
-  long long* stamps;     // (stamp_steps, 4 L + 4) or null: block 0's clock at each phase end
+  long long* stamps;     // (stamp_steps, 4 L + 4) or null: block 0's clock, phase by phase
   int stamp_steps;
+  long long* counts;     // (2,) or null, with stamps: block 0's exchanges, first-read hits
 };
 
 __host__ __device__ inline size_t r16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// exchange words of a row of n elements of T: 4 bytes of payload a word
+template <typename T>
+__host__ __device__ constexpr int words_of(int n) {
+  return n * (int)sizeof(T) / 4;
+}
+
+// the tag of exchange e of step t (e = 2 l: layer l's gated; 2 l + 1: its h,
+// after the last layer the skip sum; 2 L: fin)
+__device__ __forceinline__ uint32_t tag_of(const Params& p, int t, int e) {
+  return (uint32_t)t * (uint32_t)(2 * p.L + 1) + (uint32_t)e + 1u;
+}
+
+// the half of `gated` that layer l of step t publishes into (in copy 0)
+template <typename A>
+__device__ __forceinline__ u64* gated_half(const Params& p, int t, int l) {
+  const uint32_t half = ((uint32_t)t * (uint32_t)p.L + (uint32_t)l) & 1u;
+  return p.gated + (size_t)half * p.B * words_of<A>(p.G2);
+}
+
+// the offset of this block's copy of an exchange buffer of `copy` words
+__device__ __forceinline__ size_t my_copy(size_t copy) {
+  return (size_t)(blockIdx.x % kCopies) * copy;
+}
+
+// block 0's SM clock at stamp k of step t, in a stamped run
+__device__ __forceinline__ void stamp(const Params& p, int t, int k) {
+  if (p.stamps && blockIdx.x == 0 && threadIdx.x == 0 && t < p.stamp_steps)
+    p.stamps[(size_t)t * (4 * p.L + 4) + k] = clock64();
+}
 
 // Per-layer constants of a block, floats: [int8 only: w_in row scales
 // (2 pairs x kSegs) | w_so row scales (rows)] [b_in of its 2 pairs rows |
@@ -328,6 +437,86 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, size_t by
   const uint4* s = static_cast<const uint4*>(src);
   uint4* d = static_cast<uint4*>(dst);
   for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads) cp_async16(d + i, s + i);
+}
+
+// bytes (a multiple of 16) of global dst zeroed by the whole grid
+__device__ __forceinline__ void zero_by_grid(void* dst, size_t bytes, int blocks) {
+  uint4* d = static_cast<uint4*>(dst);
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < bytes / 16;
+       i += (size_t)blocks * kThreads)
+    d[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// ---- the exchange words ------------------------------------------------------
+
+// one word into every copy (`copy` words apart): payload in the low 4
+// bytes, tag in the high 4
+__device__ __forceinline__ void word_store(u64* w, size_t copy, uint32_t payload, uint32_t tag) {
+  const u64 word = ((u64)tag << 32) | payload;
+#pragma unroll
+  for (int c = 0; c < kCopies; ++c)
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(w + c * copy), "l"(word) : "memory");
+}
+
+// words w[0..3] (16-byte aligned), two at a time, each single-copy atomic
+__device__ __forceinline__ void words_load4(const u64* w, u64 (&v)[4]) {
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(v[0]), "=l"(v[1]) : "l"(w) : "memory");
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(v[2]), "=l"(v[3]) : "l"(w + 2) : "memory");
+}
+
+__device__ __forceinline__ bool words_tagged(const u64 (&v)[4], uint32_t tag) {
+  return (uint32_t)(v[0] >> 32) == tag && (uint32_t)(v[1] >> 32) == tag &&
+         (uint32_t)(v[2] >> 32) == tag && (uint32_t)(v[3] >> 32) == tag;
+}
+
+// The 16 bytes of payload in words [0, 4) of nb rows (src, then `stride`
+// words apart) into v[bb], once every word carries `tag`: all the rows'
+// loads are issued first, then the rows whose words are not yet tagged are
+// loaded again.  Returns whether the first read missed a word.
+__device__ __forceinline__ bool words_take(const u64* src, size_t stride, int nb, uint32_t tag,
+                                           uint4 (&v)[kMaxTile]) {
+  u64 w[kMaxTile][4];
+#pragma unroll
+  for (int bb = 0; bb < kMaxTile; ++bb)
+    if (bb < nb) words_load4(src + bb * stride, w[bb]);
+  bool missed = false;
+  for (long long spins = 0;; ++spins) {
+    bool all = true;
+#pragma unroll
+    for (int bb = 0; bb < kMaxTile; ++bb)
+      if (bb < nb && !words_tagged(w[bb], tag)) all = false;
+    if (all) break;
+    missed = true;
+    if (spins >= kSpinLimit) __trap();
+#pragma unroll
+    for (int bb = 0; bb < kMaxTile; ++bb)
+      if (bb < nb && !words_tagged(w[bb], tag)) words_load4(src + bb * stride, w[bb]);
+  }
+#pragma unroll
+  for (int bb = 0; bb < kMaxTile; ++bb)
+    if (bb < nb)
+      v[bb] = make_uint4((uint32_t)w[bb][0], (uint32_t)w[bb][1], (uint32_t)w[bb][2],
+                         (uint32_t)w[bb][3]);
+  return missed;
+}
+
+// Ends a staging pass: the block waits for all its threads' words.  Where
+// `exchange` and counts are asked for, block 0 tallies the exchange and
+// whether every thread found its words at the first read, over the stamped
+// steps but the first (as the stamps are reduced).
+__device__ __forceinline__ void staged(const Params& p, int t, bool missed, bool exchange,
+                                       long long* tally) {
+  if (exchange && p.counts && blockIdx.x == 0 && t > 0 && t < p.stamp_steps) {
+    const int any = __syncthreads_or(missed);
+    if (threadIdx.x == 0) {
+      tally[0] += 1;
+      tally[1] += !any;
+    }
+  } else {
+    __syncthreads();
+  }
 }
 
 // ---- dots --------------------------------------------------------------------
@@ -487,109 +676,138 @@ __device__ __forceinline__ void slots_of(const Params& p, int t, int l, int* s2,
   *s1 = p.offs[l] + (wp + d) % (2 * d);
 }
 
-// Chunk q (16 bytes) of staged row b0 of phase `in`: its source, the
-// stride in chunks between batch rows, its element offset in the staged row,
-// and its kind: 0 ring tap x_{t-2d}, 1 ring tap x_{t-d}, 2 h, 3 cond.
-template <typename A>
-__device__ __forceinline__ const uint4* in_chunk(const Params& p, const A* x2, const A* x1, int t,
-                                                 int b0, int q, size_t* stride, int* dst,
-                                                 int* kind) {
-  constexpr int VA = Cvt<A>::kVec;
-  const int R = p.R, ca = R / VA;
-  if (q < 3 * ca) {
-    const int seg = q / ca, k = q - seg * ca;
-    const A* base = seg == 0 ? x2 : seg == 1 ? x1 : static_cast<const A*>(p.h);
-    *stride = R / VA;
-    *dst = seg * p.Rs + k * VA;
-    *kind = seg;
-    return reinterpret_cast<const uint4*>(base + (size_t)b0 * R) + k;
-  }
-  const int k = q - 3 * ca;
-  *stride = (size_t)p.T * p.C / 4;
-  *dst = 3 * p.Rs + k * 4;
-  *kind = 3;
-  return reinterpret_cast<const uint4*>(p.cond + ((size_t)b0 * p.T + t) * p.C) + k;
-}
-
 // xs (nb rows of KIp elements of A) = [x_{t-2d} | x_{t-d} | h | c_t] of
 // batch rows b0.., each segment at its offset of the pack (taps Rs apart,
-// cond at 3 Rs) and zeros in the padding.  The ring and h arrive in A and
-// are copied as they are; cond is rounded to A; layer 0's h is the
-// block-local first_conv of the last draws.  A thread takes the same 16-byte
-// chunk q of every row (one row's source, then a stride), all its loads
-// issued before its first store.
+// cond at 3 Rs) and zeros in the padding, in 16-byte chunks.  The ring
+// arrives in A and is copied as it is; h is the payload of layer l - 1's
+// words, once they carry its tag; cond is rounded to A; layer 0's h is the
+// block-local first_conv of the last draws.  The loads are spread evenly,
+// since a round trip grows with the loads a thread has in flight: slots
+// [0, 2 R/VA) take a tap's chunk of every row, slots [2 R/VA, 4 R/VA) an h
+// chunk of the first or the last half of the rows (two loads a chunk and
+// row, its words being twice its bytes), and cond's (row, chunk) units ride
+// along on the first threads; a
+// thread issues all its loads before its first store.  Returns whether this
+// thread's first read of h missed a word.
 template <typename A>
-__device__ __forceinline__ void stage_in(const Params& p, const A* x2, const A* x1, int l, int t,
+__device__ __forceinline__ bool stage_in(const Params& p, const A* x2, const A* x1, int l, int t,
                                          int b0, int nb, const float* xsamp, A* xs) {
   constexpr int VA = Cvt<A>::kVec;  // activation elements in 16 bytes
-  const int R = p.R, Rs = p.Rs, C = p.C, KIp = p.KIp;
-  const int nq = 3 * (R / VA) + C / 4;  // chunks of a batch row
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    size_t stride;
-    int dst, kind;
-    const uint4* src = in_chunk<A>(p, x2, x1, t, b0, q, &stride, &dst, &kind);
-    const bool act = kind < 3;
-    const bool first_conv = l == 0 && kind == 2;  // layer 0's h: computed here
+  const int R = p.R, Rs = p.Rs, C = p.C, KIp = p.KIp, ca = R / VA, cc = C / 4;
+  const int wr = words_of<A>(R), half = (nb + 1) / 2;
+  const uint4* cond = reinterpret_cast<const uint4*>(p.cond + ((size_t)b0 * p.T + t) * C);
+  const size_t cstride = (size_t)p.T * C / 4;  // 16-byte chunks between batch rows of cond
+  auto cond_at = [&](int u, int* d) {  // cond unit u: chunk u % cc of row u / cc
+    const int bb = u / cc, k = u - bb * cc;
+    *d = bb * KIp + 3 * Rs + k * 4;
+    return cond + bb * cstride + k;
+  };
+  auto put_cond = [&](int d, uint4 v) {
+    const float f[4] = {__uint_as_float(v.x), __uint_as_float(v.y), __uint_as_float(v.z),
+                        __uint_as_float(v.w)};
+    store4<A>(xs + d, f);
+  };
+  int dc = 0;
+  const bool has_c = threadIdx.x < cc * nb;
+  uint4 vc = make_uint4(0u, 0u, 0u, 0u);
+  if (has_c) vc = __ldcg(cond_at(threadIdx.x, &dc));
+  bool missed = false;
+  for (int c = threadIdx.x; c < 4 * ca; c += kThreads) {
+    const int g = c / ca, k = c - g * ca;  // g: tap x_{t-2d}, tap x_{t-d}, h's first, last half
+    const int r0 = g < 2 ? 0 : (g - 2) * half, nr = g < 2 ? nb : min(nb, r0 + half) - r0;
+    const int seg = g < 2 ? g : 2, dst = seg * Rs + k * VA;
     uint4 v[kMaxTile];
+    if (g < 2) {
+      const uint4* src = reinterpret_cast<const uint4*>((g == 0 ? x2 : x1) + (size_t)b0 * R) + k;
 #pragma unroll
-    for (int bb = 0; bb < kMaxTile; ++bb)
-      if (bb < nb && !first_conv) v[bb] = __ldcg(src + bb * stride);
+      for (int bb = 0; bb < kMaxTile; ++bb)
+        if (bb < nr) v[bb] = __ldcg(src + bb * (R / VA));
+    } else if (l > 0 && nr > 0) {  // 16 bytes of h: words 4k .. 4k + 3 of each row
+      missed |= words_take(p.h + my_copy(p.copy_h) + (size_t)(b0 + r0) * wr + 4 * k, wr, nr,
+                           tag_of(p, t, 2 * l - 1), v);  // layer l - 1's h
+    }
 #pragma unroll
     for (int bb = 0; bb < kMaxTile; ++bb) {
-      if (bb < nb) {
-        A* d = xs + (size_t)bb * KIp + dst;
-        if (first_conv) {
-          const int r = dst - 2 * Rs;
-          const float x = xsamp[b0 + bb];
+      if (bb < nr) {
+        A* d = xs + (size_t)(r0 + bb) * KIp + dst;
+        if (g >= 2 && l == 0) {  // layer 0's h: first_conv
+          const float x = xsamp[b0 + r0 + bb];
 #pragma unroll
           for (int e = 0; e < VA / 4; ++e) {
             float f[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int k = r + 4 * e + i;
-              f[i] = fmaf(x, __ldg(p.w_first + k), __ldg(p.b_first + k));
+              const int kk = k * VA + 4 * e + i;
+              f[i] = fmaf(x, __ldg(p.w_first + kk), __ldg(p.b_first + kk));
             }
             store4<A>(d + 4 * e, f);
           }
-        } else if (act) {
-          *reinterpret_cast<uint4*>(d) = v[bb];
         } else {
-          const float f[4] = {__uint_as_float(v[bb].x), __uint_as_float(v[bb].y),
-                              __uint_as_float(v[bb].z), __uint_as_float(v[bb].w)};
-          store4<A>(d, f);
+          *reinterpret_cast<uint4*>(d) = v[bb];
         }
       }
     }
   }
+  if (has_c) put_cond(dc, vc);
+  for (int u = threadIdx.x + kThreads; u < cc * nb; u += kThreads) {  // more units than threads
+    int d;
+    const uint4 v = __ldcg(cond_at(u, &d));
+    put_cond(d, v);
+  }
   // zeros in the padding: [R, Rs) after each tap, [3 Rs + C, KIp) at the end
   const int pad_tap = Rs - R, npad = 3 * pad_tap + (KIp - 3 * Rs - C);
   for (int i = threadIdx.x; i < nb * npad; i += kThreads) {
-    const int bb = i / npad, k = i - bb * npad;
-    const int at = k < 3 * pad_tap ? (k / pad_tap) * Rs + R + k % pad_tap
-                                   : 3 * Rs + C + (k - 3 * pad_tap);
+    const int bb = i / npad, kk = i - bb * npad;
+    const int at = kk < 3 * pad_tap ? (kk / pad_tap) * Rs + R + kk % pad_tap
+                                    : 3 * Rs + C + (kk - 3 * pad_tap);
     xs[(size_t)bb * KIp + at] = Cvt<A>::from(0.f);
   }
+  return missed;
 }
 
-// dst (nb rows, n_dst elements apart) = the T rows src (n elements, whole
-// 16-byte chunks, src_stride apart) as they are, zeros in [n, n_dst)
+// dst (nb rows, n_dst elements apart) = the payload of nb rows of words src
+// (n elements of T, whole 16-byte chunks; rows `stride` words apart) once
+// every word carries `tag`, zeros in [n, n_dst).  One (row, chunk) a thread:
+// a round trip grows with the loads a thread has in flight, so the polls
+// are spread over the block rather than a chunk's rows kept on one thread.
+// Returns whether this thread's first read missed a word.
 template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int n_dst, const T* src, int src_stride,
-                                           int nb, int n) {
+__device__ __forceinline__ bool stage_words(T* dst, int n_dst, const u64* src, int stride,
+                                            int nb, int n, uint32_t tag) {
   constexpr int V = Cvt<T>::kVec;
   const int nq = n_dst / V;  // n_dst is a multiple of V
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    const bool in = q * V < n;
+  bool missed = false;
+  for (int u = threadIdx.x; u < nq * nb; u += kThreads) {
+    const int bb = u / nq, q = u - bb * nq;
     uint4 v[kMaxTile];
+    if (q * V < n)
+      missed |= words_take(src + (size_t)bb * stride + 4 * q, stride, 1, tag, v);
+    else
+      v[0] = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(dst + (size_t)bb * n_dst)[q] = v[0];
+  }
+  return missed;
+}
+
+// The words of the block's rows [o1, o2) for batch rows b0 .. b0 + nb - 1:
+// row o is element o - col0 of a published row of `wpr` words, its value
+// own[(o - o0) * B + b] (relu'd for the skip sum) rounded to T.  o1 - col0
+// and o2 - o1 are whole words (the plan's rows are).
+template <typename T>
+__device__ __forceinline__ void publish(u64* words, size_t copy, int wpr, const float* own, int o0,
+                                        int o1, int o2, int col0, int B, int b0, int nb,
+                                        bool relu, uint32_t tag) {
+  constexpr int per = 4 / (int)sizeof(T);  // elements a word
+  const int nw = (o2 - o1) / per;
+  for (int i = threadIdx.x; i < nb * nw; i += kThreads) {
+    const int bb = i / nw, w = i - bb * nw, b = b0 + bb, o = o1 + w * per;
+    uint32_t bits = 0;
 #pragma unroll
-    for (int bb = 0; bb < kMaxTile; ++bb) {
-      v[bb] = make_uint4(0u, 0u, 0u, 0u);
-      if (bb < nb && in)
-        v[bb] = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)bb * src_stride) + q);
+    for (int e = 0; e < per; ++e) {
+      const float v = own[(size_t)(o + e - o0) * B + b];
+      bits |= Cvt<T>::bits(relu ? fmaxf(v, 0.f) : v) << (16 * e);
     }
-#pragma unroll
-    for (int bb = 0; bb < kMaxTile; ++bb)
-      if (bb < nb) reinterpret_cast<uint4*>(dst + (size_t)bb * n_dst)[q] = v[bb];
+    word_store(words + (size_t)b * wpr + words_of<T>(o - col0), copy, bits, tag);
   }
 }
 
@@ -599,7 +817,8 @@ __device__ __forceinline__ void stage_rows(T* dst, int n_dst, const T* src, int 
 template <typename W, typename A>
 __device__ __forceinline__ void phase_in(const Params& p, int t, int l, const W* wl,
                                          const float* cl, const Owned& me, const float* xsamp,
-                                         A* xs, float (&part)[kWarps][2][kMaxTile]) {
+                                         A* xs, float (&part)[kWarps][2][kMaxTile],
+                                         long long* tally) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wpp = kWarps / p.pairs, q = warp / wpp;
   const int tpp = wpp * 32, sub = tid - q * tpp;
@@ -622,13 +841,22 @@ __device__ __forceinline__ void phase_in(const Params& p, int t, int l, const W*
   int s2, s1;
   slots_of(p, t, l, &s2, &s1);
   const A* ring = static_cast<const A*>(p.ring);
-  A* gated = static_cast<A*>(p.gated);
   const size_t hsz = (size_t)p.B * p.R;
+  const int wg = words_of<A>(p.G2);
+  u64* gated = gated_half<A>(p, t, l);
+  const uint32_t tag = tag_of(p, t, 2 * l);
+  // The ring's ordering, where the block waits for h anyway: a release of the
+  // block's ring writes (the last `out`'s, behind its __syncthreads) before
+  // the gated words the combining threads store below, and an acquire of the
+  // gated words each thread staged in the last `out`.
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
   for (int b0 = 0; b0 < p.B; b0 += p.tile) {
     const int nb = min(p.tile, p.B - b0);
     if (b0 > 0) __syncthreads();  // the previous tile's readers are done
-    stage_in<A>(p, ring + (size_t)s2 * hsz, ring + (size_t)s1 * hsz, l, t, b0, nb, xsamp, xs);
-    __syncthreads();
+    const bool missed = stage_in<A>(p, ring + (size_t)s2 * hsz, ring + (size_t)s1 * hsz, l, t,
+                                    b0, nb, xsamp, xs);
+    staged(p, t, missed, l > 0, tally);
+    if (b0 == 0 && l > 0) stamp(p, t, 4 * l);  // layer l - 1's h has arrived
     float acc[2][kMaxTile] = {};
     if (live) dots<W, A, 2>(rows, xs, p.KIp, nb, sub, tpp, acc, s4, seg);
     float red[2 * kMaxTile];  // [a-row | g-row] x kMaxTile, summed over the warp at once
@@ -643,14 +871,21 @@ __device__ __forceinline__ void phase_in(const Params& p, int t, int l, const W*
       part[warp][v / kMaxTile][v % kMaxTile] = sum;
     }
     __syncthreads();
-    if (combines && cb < nb) {
-      float pa = bias[cq], pg = bias[p.pairs + cq];
-      for (int w = cq * wpp; w < (cq + 1) * wpp; ++w) {
-        pa += part[w][0][cb];
-        pg += part[w][1][cb];
+    if (warp == 0) {  // the combining threads are warp 0's first pairs x kMaxTile lanes
+      uint32_t bits = 0;
+      if (combines && cb < nb) {
+        float pa = bias[cq], pg = bias[p.pairs + cq];
+        for (int w = cq * wpp; w < (cq + 1) * wpp; ++w) {
+          pa += part[w][0][cb];
+          pg += part[w][1][cb];
+        }
+        bits = Cvt<A>::bits(tanhf(pa) * (1.f / (1.f + expf(-pg))));
       }
-      gated[(size_t)(b0 + cb) * p.G2 + me.j0 + cq] =
-          Cvt<A>::from(tanhf(pa) * (1.f / (1.f + expf(-pg))));
+      if constexpr (sizeof(A) == 2)  // pair cq + 1's gate, the word's high half
+        bits |= __shfl_down_sync(0xffffffffu, bits, kMaxTile) << 16;
+      if (combines && cb < nb && (sizeof(A) == 4 || (cq & 1) == 0))
+        word_store(gated + (size_t)(b0 + cb) * wg + words_of<A>(me.j0 + cq), p.copy_gated, bits,
+                   tag);
     }
   }
 }
@@ -660,7 +895,7 @@ __device__ __forceinline__ void phase_in(const Params& p, int t, int l, const W*
 template <typename W, typename A, typename F>
 __device__ __forceinline__ void phase_out(const Params& p, int t, int l, const W* wl,
                                           const float* cl, const Owned& me, float* own,
-                                          A* gs) {
+                                          A* gs, long long* tally) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int B = p.B, R = p.R, S = p.S, G2p = p.G2p;
   const W* wso = wl + (size_t)2 * p.pairs * p.KIp;
@@ -672,13 +907,16 @@ __device__ __forceinline__ void phase_out(const Params& p, int t, int l, const W
   int s2, s1;
   slots_of(p, t, l, &s2, &s1);
   A* ring_w = static_cast<A*>(p.ring) + (size_t)s2 * B * R;
-  A* h = static_cast<A*>(p.h);
-  F* skip = static_cast<F*>(p.skip);
+  const int wg = words_of<A>(p.G2);
+  const u64* gated = gated_half<A>(p, t, l) + my_copy(p.copy_gated);
+  const uint32_t tag_in = tag_of(p, t, 2 * l), tag_out = tag_of(p, t, 2 * l + 1);
+  const int o_end = me.o0 + me.no;  // published: the block's out rows, or its skip rows at the last
   for (int b0 = 0; b0 < B; b0 += p.tile) {
     const int nb = min(p.tile, B - b0);
     if (b0 > 0) __syncthreads();
-    stage_rows<A>(gs, G2p, static_cast<const A*>(p.gated) + (size_t)b0 * p.G2, p.G2, nb, p.G2);
-    __syncthreads();
+    const bool missed = stage_words<A>(gs, G2p, gated + (size_t)b0 * wg, wg, nb, p.G2, tag_in);
+    staged(p, t, missed, true, tally);
+    if (b0 == 0) stamp(p, t, 4 * l + 2);  // every block's gated has arrived
     for (int i = warp; i < me.no; i += kWarps) {
       const int o = me.o0 + i;
       float s4[1][kSegs] = {{1.f, 1.f, 1.f, 1.f}};
@@ -692,35 +930,41 @@ __device__ __forceinline__ void phase_out(const Params& p, int t, int l, const W
         v += bso[i];
         float* ow = own + (size_t)i * B + b;
         if (o < S) {
-          const float sk = l == 0 ? v : (*ow + v) * skip_scale;
-          *ow = sk;
-          if (last) skip[(size_t)b * S + o] = Cvt<F>::from(fmaxf(sk, 0.f));
+          *ow = l == 0 ? v : (*ow + v) * skip_scale;
         } else {
           const int r = o - S;
           const float hi = *ow;
           ring_w[(size_t)b * R + r] = Cvt<A>::from(hi);
-          const float hn = (v + hi) * kSqrtHalf;
-          *ow = hn;
-          if (!last) h[(size_t)b * R + r] = Cvt<A>::from(hn);
+          *ow = (v + hi) * kSqrtHalf;
         }
       }
     }
+    __syncthreads();  // own holds the tile's rows; every thread is done with the weights
+    if (last)
+      publish<F>(p.skip, p.copy_skip, words_of<F>(S), own, me.o0, me.o0, min(o_end, S), 0, B, b0,
+                 nb, true, tag_out);
+    else
+      publish<A>(p.h, p.copy_h, words_of<A>(R), own, me.o0, max(me.o0, S), o_end, S, B, b0, nb,
+                 false, tag_out);
   }
 }
 
 // final1: fin = relu(F(relu(skip)) @ w_f1 + b_f1) for the block's columns
 template <typename F>
-__device__ __forceinline__ void phase_final1(const Params& p, const F* wf1, const Owned& me,
-                                             F* os) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, S = p.S;
+__device__ __forceinline__ void phase_final1(const Params& p, int t, const F* wf1, const Owned& me,
+                                             F* os, long long* tally) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, S = p.S, ws = words_of<F>(S);
   const float ones[1][kSegs] = {{1.f, 1.f, 1.f, 1.f}};
   const int3 one_seg = make_int3(INT_MAX, INT_MAX, INT_MAX);
   const float bias0 = warp < me.nf ? __ldg(p.b_f1 + me.f0 + warp) : 0.f;  // before the staging
+  const uint32_t tag_in = tag_of(p, t, 2 * p.L - 1), tag_out = tag_of(p, t, 2 * p.L);
   for (int b0 = 0; b0 < p.B; b0 += p.tile) {
     const int nb = min(p.tile, p.B - b0);
     if (b0 > 0) __syncthreads();
-    stage_rows<F>(os, S, static_cast<const F*>(p.skip) + (size_t)b0 * S, S, nb, S);
-    __syncthreads();
+    const bool missed = stage_words<F>(os, S, p.skip + my_copy(p.copy_skip) + (size_t)b0 * ws, ws,
+                                       nb, S, tag_in);
+    staged(p, t, missed, true, tally);
+    if (b0 == 0) stamp(p, t, 4 * p.L);  // every block's skip sum has arrived
     for (int i = warp; i < me.nf; i += kWarps) {
       const int o = me.f0 + i;
       const F* const rows[1] = {wf1 + (size_t)i * S};
@@ -728,7 +972,9 @@ __device__ __forceinline__ void phase_final1(const Params& p, const F* wf1, cons
       dots<F, F, 1>(rows, os, S, nb, lane, 32, acc, ones, one_seg);
       const float v = warp_sums_to_lanes<kMaxTile>(acc[0]);
       if (lane < nb)
-        p.fin[(size_t)(b0 + lane) * S + o] = fmaxf(v + (i == warp ? bias0 : __ldg(p.b_f1 + o)), 0.f);
+        word_store(p.fin + (size_t)(b0 + lane) * S + o, p.copy_fin,
+                   __float_as_uint(fmaxf(v + (i == warp ? bias0 : __ldg(p.b_f1 + o)), 0.f)),
+                   tag_out);
     }
   }
 }
@@ -740,16 +986,19 @@ __device__ __forceinline__ void phase_final1(const Params& p, const F* wf1, cons
 // w_f2 loads (256 columns) before it uses any.
 constexpr int kHeadRows = 4;
 
-__device__ __forceinline__ void phase_head(const Params& p, int t, const Owned& me, float* fs, float* xsamp,
-                           float* own) {
+__device__ __forceinline__ void phase_head(const Params& p, int t, const Owned& me, float* fs,
+                                           float* xsamp, float* own, long long* tally) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int B = p.B, S = p.S, K = p.K;
   float* ys = fs + (size_t)p.tile * S;  // after the fin tile: tile x K draws' parameters
+  const uint32_t tag = tag_of(p, t, 2 * p.L);
   for (int b0 = 0; b0 < B; b0 += p.tile) {
     const int nb = min(p.tile, B - b0);
-    if (b0 > 0) __syncthreads();
-    stage_rows<float>(fs, S, p.fin + (size_t)b0 * S, S, nb, S);
-    __syncthreads();
+    __syncthreads();  // final1's (or the previous tile's) readers of the staging tile are done
+    const bool missed =
+        stage_words<float>(fs, S, p.fin + my_copy(p.copy_fin) + (size_t)b0 * S, S, nb, S, tag);
+    staged(p, t, missed, true, tally);
+    if (b0 == 0) stamp(p, t, 4 * p.L + 2);  // every block's fin has arrived
     for (int c0 = warp; c0 < K; c0 += kHeadRows * kWarps) {
       float acc[kHeadRows][kMaxTile] = {};
       for (int k0 = 0; k0 < S; k0 += 8 * 32) {
@@ -814,6 +1063,7 @@ __device__ __forceinline__ void phase_head(const Params& p, int t, const Owned& 
 template <typename W, typename A, typename F>
 __global__ void __launch_bounds__(kThreads, 1) wavenet_persistent(const Params p) {
   __shared__ float part[kWarps][2][kMaxTile];
+  __shared__ long long tally[2];  // block 0, counting: exchanges, first reads that found all
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const Layout lo = layout_of<W, A, F>(p);
@@ -845,7 +1095,8 @@ __global__ void __launch_bounds__(kThreads, 1) wavenet_persistent(const Params p
                (size_t)me.no * p.G2p * sizeof(W));
   };
 
-  // prologue: resident weights, constants and final1 columns in; the ring zeroed
+  // prologue: resident weights, constants and final1 columns in; the ring and
+  // the exchange words zeroed
   for (int l = 0; l < p.nres; ++l) load_layer(l, wres + (size_t)l * slice);
   copy_async(wf1, static_cast<const F*>(p.w_f1) + (size_t)me.f0 * p.S,
              (size_t)me.nf * p.S * sizeof(F));
@@ -876,12 +1127,12 @@ __global__ void __launch_bounds__(kThreads, 1) wavenet_persistent(const Params p
     const int o = me.o0 + i / p.B;
     if (o >= p.S) own[i] = fmaf(0.f, p.w_first[o - p.S], p.b_first[o - p.S]);
   }
-  {
-    uint4* ring = static_cast<uint4*>(p.ring);
-    const size_t n16 = (size_t)p.slots * p.B * p.R * sizeof(A) / 16;
-    for (size_t i = (size_t)blk * kThreads + threadIdx.x; i < n16; i += (size_t)p.blocks * kThreads)
-      ring[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
+  if (threadIdx.x == 0) tally[0] = tally[1] = 0;
+  zero_by_grid(p.ring, (size_t)p.slots * p.B * p.R * sizeof(A), p.blocks);
+  zero_by_grid(p.gated, kCopies * p.copy_gated * sizeof(u64), p.blocks);
+  zero_by_grid(p.h, kCopies * p.copy_h * sizeof(u64), p.blocks);
+  zero_by_grid(p.skip, kCopies * p.copy_skip * sizeof(u64), p.blocks);
+  zero_by_grid(p.fin, kCopies * p.copy_fin * sizeof(u64), p.blocks);
   cp_async_wait<0>();
   long long streamed = 0;  // streamed layers so far: buffer streamed & 1
   if (p.nres < p.L) {
@@ -889,24 +1140,21 @@ __global__ void __launch_bounds__(kThreads, 1) wavenet_persistent(const Params p
     cp_async_commit();
   }
   __syncthreads();
-  grid.sync();  // the ring is zero everywhere
+  grid.sync();  // the ring and the words are zero everywhere: the launch's one barrier
 
-  // check runs: block 0's thread 0 reads the SM clock at the step's start
-  // and at the end of every phase and barrier (index 4 L + 4 a step)
-  const int nst = 4 * p.L + 4;
-  auto stamp = [&](int t, int k) {
-    if (p.stamps && blk == 0 && threadIdx.x == 0 && t < p.stamp_steps)
-      p.stamps[(size_t)t * nst + k] = clock64();
-  };
+  // The step: each phase waits inside its staging for the words it reads
+  // (stamped at 4 l, 4 l + 2, 4 L and 4 L + 2) and publishes its own (stamped
+  // at its end: 4 l + 1, 4 l + 3, 4 L + 1 and, for the head, 4 L + 3).
   for (int t = 0; t < p.T; ++t) {
-    stamp(t, 0);
+    stamp(p, t, 0);
     for (int l = 0; l < p.L; ++l) {
       const W* wl;
       if (l < p.nres) {
         wl = wres + (size_t)l * slice;
       } else {
         // the next streamed layer's copy goes out now, into the buffer that
-        // the previous streamed layer read before its barriers
+        // the previous streamed layer read before the __syncthreads that
+        // ends its `out`
         const int next = l + 1 < p.L ? l + 1 : p.nres;
         load_layer(next, wbuf + (size_t)((streamed + 1) & 1) * slice);
         cp_async_commit();
@@ -916,21 +1164,23 @@ __global__ void __launch_bounds__(kThreads, 1) wavenet_persistent(const Params p
         ++streamed;
       }
       const float* cl = consts + (size_t)l * per;
-      phase_in<W, A>(p, t, l, wl, cl, me, xsamp, reinterpret_cast<A*>(stage), part);
-      stamp(t, 4 * l + 1);
-      grid.sync();  // (a) gated is whole; every block has staged slot x_{t-2d}
-      stamp(t, 4 * l + 2);
-      phase_out<W, A, F>(p, t, l, wl, cl, me, own, reinterpret_cast<A*>(stage));
-      stamp(t, 4 * l + 3);
-      grid.sync();  // (b) h (or, after the last layer, the skip sum) is whole
-      stamp(t, 4 * l + 4);
+      // waits for layer l - 1's h; publishes gated, after which the ring's
+      // slot x_{t-2d} of this layer is free: every block has staged it
+      phase_in<W, A>(p, t, l, wl, cl, me, xsamp, reinterpret_cast<A*>(stage), part, tally);
+      stamp(p, t, 4 * l + 1);
+      // waits for every block's gated; publishes h (or, after the last
+      // layer, the skip sum)
+      phase_out<W, A, F>(p, t, l, wl, cl, me, own, reinterpret_cast<A*>(stage), tally);
+      stamp(p, t, 4 * l + 3);
     }
-    phase_final1<F>(p, wf1, me, reinterpret_cast<F*>(stage));
-    stamp(t, 4 * p.L + 1);
-    grid.sync();  // fin is whole
-    stamp(t, 4 * p.L + 2);
-    phase_head(p, t, me, reinterpret_cast<float*>(stage), xsamp, own);
-    stamp(t, 4 * p.L + 3);
+    phase_final1<F>(p, t, wf1, me, reinterpret_cast<F*>(stage), tally);
+    stamp(p, t, 4 * p.L + 1);
+    phase_head(p, t, me, reinterpret_cast<float*>(stage), xsamp, own, tally);
+    stamp(p, t, 4 * p.L + 3);
+  }
+  if (p.counts && blk == 0 && threadIdx.x == 0) {
+    p.counts[0] = tally[0];
+    p.counts[1] = tally[1];
   }
   cp_async_wait<0>();
 }
@@ -984,9 +1234,14 @@ extern "C" {
 // only, with float32 scales s_in (L, 4, G) and s_so (L, S + R); activations
 // and ring in bf16).  w_dtype / f1_dtype pairs: (0, 0), (1, 1), (2, 0), (2, 1).
 // The block plan (blocks, pairs, rows, cols, tile, nres, smem) comes from the
-// Python wrapper's block_plan; smem must equal the kernel's own layout.
-// Pointers are 16-byte aligned device pointers except dil (host, L ints);
-// draws and stamps (check runs) may be null.  Returns 0 or the first cudaError_t.
+// Python wrapper's block_plan; smem must equal the kernel's own layout, and
+// pairs and rows must be whole exchange words.  h, skip, gated and fin are
+// the exchange words (int64: (B, R), (B, S), (2, B, G/2) and (B, S)
+// elements at 4 bytes of payload a word), zeroed here.  L >= 3 and
+// T (2 L + 1) < 2^32.  Pointers are 16-byte aligned device pointers except
+// dil (host, L ints); draws, stamps and counts (check and traced runs) may be
+// null, counts (2 int64) is written only beside stamps.  Returns 0 or the
+// first cudaError_t.
 int dvc_wavenet_generate(int w_dtype, int f1_dtype, int B, int T, int L, int R, int Rs, int G,
                          int G2p, int S, int C, int KIp, int K, const int* dil, int legacy,
                          float log_scale_min, unsigned long long seed, int deterministic,
@@ -996,11 +1251,15 @@ int dvc_wavenet_generate(int w_dtype, int f1_dtype, int B, int T, int L, int R, 
                          const void* w_first, const void* b_first, const void* w_f1,
                          const void* b_f1, const void* w_f2, const void* b_f2, const void* cond,
                          void* ring, void* h, void* skip, void* gated, void* fin, void* out,
-                         void* draws, void* stamps, int stamp_steps, void* stream) {
+                         void* draws, void* stamps, int stamp_steps, void* counts,
+                         void* stream) {
   const int vec = w_dtype == 0 ? 4 : w_dtype == 1 ? 8 : 16;  // weights per 16 bytes
   const bool int8 = w_dtype == 2;
   const int G2 = G / 2;
-  if (f1_dtype < 0 || f1_dtype > 1 || B <= 0 || T < 0 || L <= 0 || L > kMaxLayers || K <= 0 ||
+  const int aw = w_dtype == 0 ? 1 : 2, fw = f1_dtype == 0 ? 1 : 2;  // elements an exchange word
+  if (f1_dtype < 0 || f1_dtype > 1 || B <= 0 || T < 0 || L < 3 || L > kMaxLayers || K <= 0 ||
+      (long long)T * (2 * L + 1) > 0xffffffffLL || pairs % aw != 0 || rows % aw != 0 ||
+      rows % fw != 0 ||
       K % 3 != 0 || G % 2 != 0 || G2 % 8 != 0 || S % 8 != 0 || R % 8 != 0 || C % 4 != 0 ||
       KIp % vec != 0 || G2p % vec != 0 || G2p < G2 || Rs < R || KIp < 3 * Rs + C ||
       (int8 && (Rs % vec != 0 || !s_in || !s_so)) || blocks <= 0 ||
@@ -1052,14 +1311,19 @@ int dvc_wavenet_generate(int w_dtype, int f1_dtype, int B, int T, int L, int R, 
   p.b_f2 = static_cast<const float*>(b_f2);
   p.cond = static_cast<const float*>(cond);
   p.ring = ring;
-  p.h = h;
-  p.skip = skip;
-  p.gated = gated;
-  p.fin = static_cast<float*>(fin);
+  p.h = static_cast<u64*>(h);
+  p.skip = static_cast<u64*>(skip);
+  p.gated = static_cast<u64*>(gated);
+  p.fin = static_cast<u64*>(fin);
+  p.copy_h = (size_t)B * (R / aw);  // words of a copy: aw or fw elements a word
+  p.copy_skip = (size_t)B * (S / fw);
+  p.copy_gated = (size_t)2 * B * (G2 / aw);
+  p.copy_fin = (size_t)B * S;
   p.out = static_cast<float*>(out);
   p.draws = static_cast<float*>(draws);
   p.stamps = static_cast<long long*>(stamps);
   p.stamp_steps = stamps ? stamp_steps : 0;
+  p.counts = stamps ? static_cast<long long*>(counts) : nullptr;
   const cudaStream_t st = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
   switch (w_dtype * 2 + f1_dtype) {  // f1_dtype is 0 or 1

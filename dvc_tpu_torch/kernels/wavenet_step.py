@@ -21,6 +21,9 @@ are described there); this module holds
   * ``block_plan`` — which rows each block owns, which layers stay resident
     in its shared memory, the row tile and the shared-memory bytes: the
     kernel takes the plan and refuses one whose bytes are not its own;
+  * ``exchange``, ``max_steps`` and ``exchange_buffers`` — how the blocks
+    hand each phase's output on without a grid barrier: tagged 8-byte
+    words, the tag of each exchange, and the buffers that hold them;
   * ``wavenet_generate`` — the wrapper: a CUDA tensor launches the kernel or
     raises; a CPU tensor runs the plain version;
   * ``wavenet_generate_plain`` — the same arithmetic in PyTorch, cast for
@@ -68,6 +71,9 @@ MAX_TILE = 8         # batch rows per pass through the weights
 MAX_PAIRS = 4        # gate pairs a block: the 8 warps split evenly over its pairs
 SEGS = 4             # int8 w_in scale segments
 STAMP_STEPS = 1 << 17  # steps a traced launch stamps at most (105 MB at 24 layers)
+_WORD_PAYLOAD = 4    # bytes of payload in an 8-byte exchange word, beside its 32-bit tag
+COPIES = 8           # copies of every exchange buffer: block k reads copy k % COPIES
+_MAX_TAG = (1 << 32) - 1
 
 _PACK_CACHE: dict = {}
 
@@ -236,6 +242,10 @@ def block_plan(packed: dict, batch: int, sms: int) -> dict[str, Any]:
     blocks), and ``rows`` consecutive skip/out rows and ``cols`` consecutive
     final1 columns, the fewest that cover S + R and S with ``blocks``
     blocks; block k owns pairs [k * pairs, (k + 1) * pairs), and so on.
+    A block publishes its gate columns and rows in whole exchange words
+    (``exchange_buffers``), so where their dtype is bf16 (two to a word)
+    ``pairs`` starts at 2 and ``rows`` is rounded up to even; a row's
+    arithmetic does not depend on its block, a gate pair's on ``pairs``.
     Its shared memory holds, in the kernel's order, ``resident_layers``
     layers of its rows (each ``layer_bytes``), a double buffer for the
     layers streamed through it (when not all are resident), the biases
@@ -251,20 +261,21 @@ def block_plan(packed: dict, batch: int, sms: int) -> dict[str, Any]:
     kip, g2p = w_in.shape[2], w_so.shape[2]
     if batch < 1 or sms < 1:
         raise ValueError(f"batch and sms must be positive, got {batch} and {sms}")
-    pairs = 1
+    asz, fsz = _act_dtype(packed).itemsize, w_f1.element_size()
+    pairs = _WORD_PAYLOAD // asz  # gate columns a word
     while pairs * sms < G2:
         pairs *= 2
     if pairs > MAX_PAIRS:
         raise ValueError(f"{G2} gate pairs need more than {MAX_PAIRS} a block on {sms} SMs")
     blocks = -(-G2 // pairs)
-    rows, cols = -(-(S + R) // blocks), -(-S // blocks)
+    rows = _ceil(-(-(S + R) // blocks), _WORD_PAYLOAD // min(asz, fsz))
+    cols = -(-S // blocks)
     layer_bytes = _r16((2 * pairs * kip + rows * g2p) * w_in.element_size())
     scales = 2 * pairs * SEGS + rows if w_in.dtype == torch.int8 else 0
     consts = _r16(L * (scales + 2 * pairs + rows) * 4)  # scales and biases of every layer
     f1 = _r16(cols * S * w_f1.element_size())
     fixed = consts + f1 + _r16(rows * batch * 4) + _r16(batch * 4)
     # a staging row in the type each phase's dots read; the head's fin | y in float32
-    asz, fsz = _act_dtype(packed).itemsize, w_f1.element_size()
     width = max(kip * asz, g2p * asz, S * fsz, (S + K) * 4)
     budget = MAX_SMEM - STATIC_SMEM
 
@@ -287,6 +298,52 @@ def block_plan(packed: dict, batch: int, sms: int) -> dict[str, Any]:
             "resident_bytes": nres * layer_bytes + consts + f1,
             "streamed_bytes_per_step": (L - nres) * layer_bytes * blocks,
             "smem_bytes": total(tile, nres)}
+
+
+def exchange(step: int, e: int, layers: int) -> tuple[int, str, int]:
+    """Exchange ``e`` of sample step ``step`` as the kernel numbers it (its
+    ``tag_of`` and ``gated_half``): (tag, buffer, half).  A step makes
+    2 L + 1 exchanges: e = 2 l is layer l's gated, into half
+    (step L + l) mod 2 of ``gated``; e = 2 l + 1 is layer l's h, or after the
+    last layer the skip sum; e = 2 L is fin.  The tag is
+    step (2 L + 1) + e + 1: unique within a launch, rising with (step, e),
+    never 0 (the zeroed words' tag)."""
+    n = 2 * layers + 1
+    if not 0 <= e < n:
+        raise ValueError(f"exchange {e} of a step of {n}")
+    tag = step * n + e + 1
+    if e == n - 1:
+        return tag, "fin", 0
+    if e % 2 == 0:
+        return tag, "gated", (step * layers + e // 2) % 2
+    return tag, "skip" if e == n - 2 else "h", 0
+
+
+def max_steps(layers: int) -> int:
+    """The most sample steps one launch takes: its last exchange's tag must
+    fit the word's 32 bits."""
+    return _MAX_TAG // (2 * layers + 1)
+
+
+def exchange_buffers(packed: dict, batch: int,
+                     device: str | torch.device) -> dict[str, torch.Tensor]:
+    """The words the kernel's blocks exchange each phase's output in, as
+    int64 tensors: each 8-byte word holds 4 bytes of payload (two bf16 or one
+    float32, in the plain row's order) and a 32-bit tag, so a copy is twice
+    its payload's bytes.  ``gated`` (2, B, G/2 activation elements; the
+    layers take the halves in turn), ``h`` (B, R activation elements),
+    ``skip`` (B, S elements of w_f1's dtype), ``fin`` (B, S float32), each
+    in COPIES copies (the leading axis): a writer stores every copy, a
+    reader polls its own, so that 128 blocks do not all spin on the same L2
+    lines.  The kernel zeroes them before its first step."""
+    L, R, G, S, C, K = _dims(packed)
+    asz, fsz = _act_dtype(packed).itemsize, packed["w_f1"].element_size()
+
+    def words(*lead, n, size):
+        return torch.empty(COPIES, *lead, n * size // _WORD_PAYLOAD, dtype=torch.int64,
+                           device=device)
+    return {"gated": words(2, batch, n=G // 2, size=asz), "h": words(batch, n=R, size=asz),
+            "skip": words(batch, n=S, size=fsz), "fin": words(batch, n=S, size=4)}
 
 
 # --- plain PyTorch version ---------------------------------------------------
@@ -453,7 +510,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_dvc_typed", False):
         lib.dvc_wavenet_generate.argtypes = (
             [_I] * 13 + [_VP, _I, ctypes.c_float, ctypes.c_ulonglong, _I] + [_I] * 6
-            + [ctypes.c_longlong] + [_VP] * 21 + [_I, _VP])
+            + [ctypes.c_longlong] + [_VP] * 21 + [_I, _VP, _VP])
         lib.dvc_wavenet_generate.restype = _I
         lib.dvc_mol_sample.argtypes = [_VP, ctypes.c_longlong, _I, _I,
                                        ctypes.c_ulonglong, _I, ctypes.c_float,
@@ -491,34 +548,45 @@ def wavenet_generate(packed: dict, cond: torch.Tensor, seed: int = 0,
     the argmax mixture's mean instead of sampling.
 
     The launch is the span ``vocoder.sample``.  While it records (a
-    torch.profiler records), the launch also stamps block 0's clock at each
-    phase end of every step (of the first STAMP_STEPS, a cap for memory
-    only), waits for them and adds their ``stamp_cycles``, reduced on the
-    device, to the span; otherwise it passes no stamp buffer."""
+    torch.profiler records), the launch also stamps block 0's clock phase by
+    phase for every step (of the first STAMP_STEPS, a cap for memory only)
+    and counts block 0's exchanges, waits for them and adds their
+    ``stamp_cycles``, reduced on the device, to the span; otherwise it
+    passes no stamp or count buffer."""
     if cond.device.type == "cpu":
         return wavenet_generate_plain(packed, cond, seed, deterministic)
     with span("vocoder.sample") as rec:
         steps = min(cond.shape[1], STAMP_STEPS) if rec is not None else 0
-        out, _, stamps = _launch(packed, cond, seed, deterministic, False, steps)
+        out, _, stamps, counts = _launch(packed, cond, seed, deterministic, False, steps)
         if steps:
-            rec.update(stamp_cycles(stamps, _dims(packed)[0]))
+            rec.update(stamp_cycles(stamps, _dims(packed)[0], counts))
     return out
 
 
-def stamp_cycles(stamps: torch.Tensor, layers: int) -> dict[str, int]:
+def stamp_cycles(stamps: torch.Tensor, layers: int,
+                 counts: torch.Tensor | None = None) -> dict[str, int]:
     """SM cycles of block 0 over the stamped steps of a launch, from its
-    (steps, 4 L + 4) stamps (per step: the start, then per layer the ends
-    of phase in, barrier (a), phase out and barrier (b), then of final1, its
-    barrier and the head): ``barrier_cycles`` in the 2 L + 1 grid barriers,
-    ``step_cycles`` from each step's start to its head's end.  The first
-    step is left out: it also waits for the resident weights' copies."""
+    (steps, 4 L + 4) stamps.  A step's stamps are its start, then for each
+    layer the end of phase in (gated published), the moment every gated word
+    had arrived, the end of phase out (h or the skip sum published), the
+    moment the next phase's words (h, or the skip sum) had arrived; then the
+    end of final1 (fin published), the moment fin had arrived, and the
+    head's end.  ``barrier_cycles`` sums the 2 L + 1 exchange waits (from a
+    phase's publication to its reader's last word; the name is the grid
+    barriers' that the waits replaced), ``step_cycles`` each step from its
+    start to its head's end.  The first step is left out: it also waits for
+    the resident weights' copies.  With the launch's ``counts`` (block 0's
+    exchanges over the same steps and those whose words had all arrived at
+    its first read) also ``exchanges`` and ``first_read_exchanges``."""
     s = stamps[1:]
     i = torch.arange(layers, device=s.device) * 4
     end = 4 * layers
     barriers = (s[:, i + 2] - s[:, i + 1]).sum() + (s[:, i + 4] - s[:, i + 3]).sum() \
         + (s[:, end + 2] - s[:, end + 1]).sum()
-    barrier_cycles, step_cycles = torch.stack([barriers, (s[:, end + 3] - s[:, 0]).sum()]).tolist()
-    return {"barrier_cycles": barrier_cycles, "step_cycles": step_cycles}
+    sums = {"barrier_cycles": barriers, "step_cycles": (s[:, end + 3] - s[:, 0]).sum()}
+    if counts is not None:
+        sums.update(exchanges=counts[0], first_read_exchanges=counts[1])
+    return dict(zip(sums, torch.stack(list(sums.values())).tolist()))
 
 
 def wavenet_generate_checked(packed: dict, cond: torch.Tensor, seed: int = 0,
@@ -527,22 +595,72 @@ def wavenet_generate_checked(packed: dict, cond: torch.Tensor, seed: int = 0,
     (out, draws, stamps).  draws (blocks, B, T) holds every block's own
     draws, which must all equal out; stamps (stamp_steps, 4 L + 4) int64 the
     SM clock of block 0 at the start of each of the first stamp_steps steps
-    and at the end of each phase and barrier: [start, then per layer in,
-    barrier (a), out, barrier (b), then final1, barrier, head]."""
-    return _launch(packed, cond, seed, deterministic, True, stamp_steps)
+    and then phase by phase, as ``stamp_cycles`` reads them."""
+    return _launch(packed, cond, seed, deterministic, True, stamp_steps)[:3]
+
+
+def _scratch(packed: dict, batch: int, steps: int, device: str | torch.device,
+             blocks: int, checked: bool, stamp_steps: int) -> dict[str, Any]:
+    """What a launch writes besides its output: the ring, the exchange
+    words, and for a check run every block's draws, for a stamped one block
+    0's stamps (of the first ``stamp_steps``) and its two exchange counts;
+    None where the launch passes a null pointer."""
+    L, R = _dims(packed)[:2]
+    stamped = min(stamp_steps, steps)
+    return {"ring": torch.empty(packed["slots"], batch, R, dtype=_act_dtype(packed),
+                                device=device),
+            **exchange_buffers(packed, batch, device),
+            "out": torch.empty(batch, steps, device=device),
+            "draws": torch.empty(blocks, batch, steps, device=device) if checked else None,
+            "stamps": (torch.zeros(stamped, 4 * L + 4, dtype=torch.int64, device=device)
+                       if checked or stamped else None),
+            "stamp_steps": stamped,
+            "counts": torch.zeros(2, dtype=torch.int64, device=device) if stamped else None}
+
+
+def _kernel_args(packed: dict, cond: torch.Tensor, seed: int, deterministic: bool,
+                 plan: dict, scratch: dict) -> dict[str, Any]:
+    """dvc_wavenet_generate's arguments but the stream, by its parameter
+    names and in their order; a tensor passes its data pointer, None a null
+    pointer (stamps also when no step is stamped)."""
+    L, R, G, S, C, K = _dims(packed)
+    cfg: VocoderConfig = packed["cfg"]
+    w_in, w_so = packed["w_in"], packed["w_so"]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    dil = np.ascontiguousarray(packed["dil"], np.int32)
+    return {
+        "w_dtype": _DTYPE_CODE[w_in.dtype], "f1_dtype": _DTYPE_CODE[packed["w_f1"].dtype],
+        "B": cond.shape[0], "T": cond.shape[1], "L": L, "R": R,
+        "Rs": _tap_stride(cfg, w_in.dtype == torch.int8), "G": G, "G2p": w_so.shape[2], "S": S,
+        "C": C, "KIp": w_in.shape[2], "K": K, "dil": dil.ctypes.data_as(ctypes.c_void_p),
+        "legacy": int(cfg.legacy),
+        "log_scale_min": cfg.log_scale_min, "seed": _seed64(seed),
+        "deterministic": int(deterministic), "blocks": plan["blocks"], "pairs": plan["pairs"],
+        "rows": plan["rows"], "cols": plan["cols"], "tile": plan["tile"],
+        "nres": plan["resident_layers"], "smem": plan["smem_bytes"],
+        **{k: ptr(packed.get(k)) for k in _WEIGHTS},  # s_in, s_so: int8 packs only
+        "cond": cond.data_ptr(),
+        **{k: ptr(scratch[k]) for k in ("ring", "h", "skip", "gated", "fin", "out", "draws")},
+        "stamps": ptr(scratch["stamps"]) if scratch["stamp_steps"] else None,
+        "stamp_steps": scratch["stamp_steps"], "counts": ptr(scratch["counts"])}
 
 
 def _launch(packed: dict, cond: torch.Tensor, seed: int, deterministic: bool,
             checked: bool, stamp_steps: int):
+    L, R, G, S, C, K = _dims(packed)
+    if L < 3 or cond.shape[1] > max_steps(L):
+        raise ValueError(f"the kernel takes L >= 3 layers and at most {max_steps(L)} steps "
+                         f"(its exchange tags are 32 bits); got L={L}, T={cond.shape[1]}")
     if cond.device.type != "cuda":
         raise ValueError(f"unsupported device {cond.device}")
-    L, R, G, S, C, K = _dims(packed)
     if cond.dim() != 3 or cond.shape[2] != C:
         raise ValueError(f"cond must be (B, T, {C}), got {tuple(cond.shape)}")
     if cond.dtype != torch.float32 or not cond.is_contiguous():
         raise ValueError("cond must be a contiguous float32 tensor")
     w_in, w_so = packed["w_in"], packed["w_so"]
-    wdt, adt = w_in.dtype, _act_dtype(packed)
+    wdt = w_in.dtype
     tensors = [packed.get(k) for k in _WEIGHTS]  # s_in, s_so: int8 packs only
     if wdt == torch.int8 and (tensors[1] is None or tensors[4] is None):
         raise ValueError("an int8 pack needs its scales s_in and s_so")
@@ -558,35 +676,15 @@ def _launch(packed: dict, cond: torch.Tensor, seed: int, deterministic: bool,
     b, t_total, _ = cond.shape
     dev = cond.device
     plan = block_plan(packed, b, torch.cuda.get_device_properties(dev).multi_processor_count)
-    out = torch.empty(b, t_total, device=dev)
-    ring = torch.empty(packed["slots"], b, R, dtype=adt, device=dev)
-    h = torch.empty(b, R, dtype=adt, device=dev)
-    skip = torch.empty(b, S, dtype=packed["w_f1"].dtype, device=dev)
-    gated = torch.empty(b, G // 2, dtype=adt, device=dev)
-    fin = torch.empty(b, S, device=dev)
-    draws = torch.empty(plan["blocks"], b, t_total, device=dev) if checked else None
-    steps = min(stamp_steps, t_total)
-    stamps = (torch.zeros(steps, 4 * L + 4, dtype=torch.int64, device=dev)
-              if checked or steps else None)
-    dil = np.ascontiguousarray(packed["dil"], np.int32)
-    cfg: VocoderConfig = packed["cfg"]
+    scratch = _scratch(packed, b, t_total, dev, plan["blocks"], checked, stamp_steps)
+    args = _kernel_args(packed, cond, seed, deterministic, plan, scratch)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dvc_wavenet_generate(
-            _DTYPE_CODE[wdt], _DTYPE_CODE[packed["w_f1"].dtype], b, t_total, L, R,
-            _tap_stride(cfg, wdt == torch.int8), G, w_so.shape[2], S, C, w_in.shape[2], K,
-            dil.ctypes.data, int(cfg.legacy), cfg.log_scale_min, _seed64(seed),
-            int(deterministic), plan["blocks"], plan["pairs"], plan["rows"], plan["cols"],
-            plan["tile"], plan["resident_layers"], plan["smem_bytes"],
-            *(None if p is None else p.data_ptr() for p in tensors),
-            cond.data_ptr(), ring.data_ptr(), h.data_ptr(), skip.data_ptr(),
-            gated.data_ptr(), fin.data_ptr(), out.data_ptr(),
-            None if draws is None else draws.data_ptr(),
-            None if stamps is None or not steps else stamps.data_ptr(), steps, stream)
+        err = lib.dvc_wavenet_generate(*args.values(), stream)
     _check(lib, err, "wavenet_generate")
     wavenet_generate.launches[str(wdt).removeprefix("torch.")] += 1
-    return out, draws, stamps
+    return scratch["out"], scratch["draws"], scratch["stamps"], scratch["counts"]
 
 
 wavenet_generate.launches = collections.Counter()

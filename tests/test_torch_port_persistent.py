@@ -127,19 +127,27 @@ def test_plan_that_cannot_fit_raises(models):
 def test_kernel_source_is_one_persistent_launch():
     """One cooperative launch per wavenet_generate call, no per-layer
     kernels and no host loop over samples: the only <<<>>> launch left is
-    the MoL sampler's own check kernel."""
+    the MoL sampler's own check kernel.  Its one grid barrier comes before
+    the step loop (the ring and the exchange words zeroed); inside the loop
+    the blocks wait on tagged words, and every such poll traps after a
+    spin limit."""
     src = SRC.read_text()
     assert src.count("cudaLaunchCooperativeKernel(") == 1
     assert re.findall(r"(\w+)<<<", src) == ["mol_sample_kernel"]
     for gone in ("layer_in_kernel", "layer_out_kernel", "final1_kernel", "head_kernel",
                  "init_h_kernel"):
         assert gone not in src
-    assert src.count("grid.sync()") == 4  # ring zeroed; (a), (b) a layer; after final1
+    assert src.count("grid.sync()") == 1
+    assert src.index("grid.sync()") < src.index("for (int t = 0; t < p.T; ++t)")
+    polls = re.findall(r"for \(long long spins = 0;; \+\+spins\) \{(.*?)\n  \}", src, re.S)
+    assert len(polls) == 1 and "if (spins >= kSpinLimit) __trap();" in polls[0]
+    assert src.count("words_load4(") == 3  # its definition; the first read and the reload in the poll
 
 
 @pytest.mark.parametrize("py_name,cu_name", [("MAX_SMEM", "kMaxSmem"),
                                              ("STATIC_SMEM", "kStaticReserve"),
-                                             ("MAX_TILE", "kMaxTile"), ("SEGS", "kSegs")])
+                                             ("MAX_TILE", "kMaxTile"), ("SEGS", "kSegs"),
+                                             ("COPIES", "kCopies")])
 def test_plan_constants_match_kernel_source(py_name, cu_name):
     """block_plan and the kernel's layout_of each reckon the shared-memory
     layout; the kernel refuses a plan whose bytes differ from its own, which
@@ -155,6 +163,130 @@ def test_plan_pairs_match_kernel_source():
     src = SRC.read_text()
     assert "(pairs != 1 && pairs != 2 && pairs != 4)" in src
     assert step.MAX_PAIRS == 4
+
+
+@pytest.mark.parametrize("layers", [3, 4, 8, 24, 64])
+def test_exchange_tags_unique_rising_never_zero(layers):
+    """Every exchange of a launch has its own tag, rising by one from 1 in
+    the kernel's order (layer by layer gated then h, the skip sum after the
+    last layer, fin last), and the gated halves take turns from one gated
+    exchange to the next, across steps too (L odd included)."""
+    steps = 40
+    seen = [step.exchange(t, e, layers) for t in range(steps) for e in range(2 * layers + 1)]
+    tags = [tag for tag, _, _ in seen]
+    assert tags == list(range(1, steps * (2 * layers + 1) + 1))
+    kinds = [kind for _, kind, _ in seen[:2 * layers + 1]]
+    assert kinds == ["gated", "h"] * (layers - 1) + ["gated", "skip", "fin"]
+    halves = [half for _, kind, half in seen if kind == "gated"]
+    assert halves == [k % 2 for k in range(steps * layers)]
+    with pytest.raises(ValueError):
+        step.exchange(0, 2 * layers + 1, layers)
+
+
+@pytest.mark.parametrize("layers", [3, 24, 64])
+def test_longest_launch_tags_fit_32_bits(layers):
+    """At the most steps a launch takes the last tag is still a 32-bit
+    number; one step more would wrap, and the wrapper refuses it before
+    anything is allocated."""
+    t_max = step.max_steps(layers)
+    assert step.exchange(t_max - 1, 2 * layers, layers)[0] <= 2**32 - 1
+    assert step.exchange(t_max, 2 * layers, layers)[0] > 2**32 - 1
+    torch.manual_seed(0)
+    cfg = VocoderConfig(**dict(TINY.__dict__, layers=layers, stacks=max(1, layers // 8)))
+    packed = step.pack_wavenet_params(WaveNet(cfg).eval(), torch.bfloat16, "cpu")
+    cond = torch.zeros(1, 1, cfg.cin_channels)
+    with pytest.raises(ValueError, match="32 bits"):
+        step.wavenet_generate_checked(packed, cond.expand(1, t_max + 1, -1))
+    with pytest.raises(ValueError, match="unsupported device"):  # T = t_max passes the check
+        step.wavenet_generate_checked(packed, cond.expand(1, t_max, -1))
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_fewer_than_three_layers_refused(layers):
+    """A block's ring writes reach their readers through its next gated
+    words, acquired at the start of a later phase `in`, which comes before
+    the ring is read again only from three layers on."""
+    torch.manual_seed(0)
+    packed = step.pack_wavenet_params(WaveNet(VocoderConfig(**dict(
+        TINY.__dict__, layers=layers, stacks=1))).eval(), torch.float32, "cpu")
+    with pytest.raises(ValueError, match="L >= 3"):
+        step.wavenet_generate_checked(packed, torch.zeros(1, 4, TINY.cin_channels))
+
+
+@pytest.mark.parametrize("cfg_name", list(CONFIGS))
+@pytest.mark.parametrize("pack", list(PACKS))
+def test_exchange_buffers_sizes(models, cfg_name, pack):
+    """The exchange words the wrapper allocates hold each phase's output at
+    4 bytes of payload a word, so twice its bytes in the activation (gated,
+    h), final1 (skip) and float32 (fin) dtypes, two halves of gated, every
+    row whole 16-byte loads, as the kernel's words_of reckons them, in
+    COPIES copies."""
+    packed = _pack(models, cfg_name, pack)
+    cfg = CONFIGS[cfg_name]
+    G2, S, R = cfg.gate_channels // 2, cfg.skip_out_channels, cfg.residual_channels
+    asz = 2 if pack != "float32" else 4
+    fsz = packed["w_f1"].element_size()
+    for batch in (1, 3, 9):
+        bufs = step.exchange_buffers(packed, batch, "cpu")
+        want = {"gated": ((step.COPIES, 2, batch), G2, asz), "h": ((step.COPIES, batch), R, asz),
+                "skip": ((step.COPIES, batch), S, fsz), "fin": ((step.COPIES, batch), S, 4)}
+        assert set(bufs) == set(want)
+        for name, (lead, n, size) in want.items():
+            t = bufs[name]
+            assert t.dtype == torch.int64 and t.shape == (*lead, n * size // 4), name
+            assert t.shape[-1] * 8 == 2 * n * size and (t.shape[-1] * 8) % 16 == 0, name
+    assert "return n * (int)sizeof(T) / 4;" in SRC.read_text()
+
+
+def _c_params(name):
+    sig = re.search(rf"int {name}\((.*?)\) {{", SRC.read_text(), re.S).group(1)
+    return [re.findall(r"(\w+)$", p.strip())[0] for p in sig.split(",")]
+
+
+@pytest.mark.parametrize("pack", list(PACKS))
+def test_kernel_args_follow_the_c_entry_point(models, pack):
+    """The wrapper's arguments are dvc_wavenet_generate's parameters, name by
+    name and in order (then the stream), which only a launch on the card
+    would otherwise show.  An untraced launch passes null stamps and a null
+    counter; a stamped one its counter, two int64 zeros."""
+    packed = _pack(models, "tiny", pack)
+    cond = torch.zeros(2, 5, TINY.cin_channels)
+    plan = step.block_plan(packed, 2, H100_SMS)
+    assert _c_params("dvc_wavenet_generate")[-1] == "stream"
+    for checked, stamp_steps in ((False, 0), (True, 0), (False, 3), (True, 9)):
+        scratch = step._scratch(packed, 2, 5, "cpu", plan["blocks"], checked, stamp_steps)
+        args = step._kernel_args(packed, cond, 1, False, plan, scratch)
+        assert list(args) + ["stream"] == _c_params("dvc_wavenet_generate")
+        assert args["T"] == 5 and args["pairs"] == plan["pairs"] and args["seed"] == 1
+        for name in ("ring", "h", "skip", "gated", "fin", "out"):
+            assert args[name] == scratch[name].data_ptr()
+        assert (args["draws"] is None) == (not checked)
+        if stamp_steps:
+            assert args["stamp_steps"] == min(stamp_steps, 5)
+            assert args["stamps"] == scratch["stamps"].data_ptr()
+            assert args["counts"] == scratch["counts"].data_ptr()
+            assert scratch["counts"].tolist() == [0, 0]
+        else:
+            assert args["stamps"] is None and args["counts"] is None
+            assert scratch["counts"] is None
+
+
+@pytest.mark.parametrize("pack", list(PACKS))
+def test_plan_publishes_whole_words(models, pack):
+    """A block's gate columns and skip/out rows fill whole exchange words:
+    an even number of each where their dtype is bf16.  At full width on an
+    H100 that is the plan the kernel had before the words (so the same
+    sums in the same order), and narrower bf16 plans start at two pairs."""
+    for cfg_name in CONFIGS:
+        packed = _pack(models, cfg_name, pack)
+        per = 1 if pack == "float32" else 2
+        for batch in (1, 3, 9):
+            plan = step.block_plan(packed, batch, H100_SMS)
+            assert plan["pairs"] % per == 0 and plan["rows"] % per == 0, (cfg_name, batch)
+            if cfg_name == "full":
+                assert (plan["blocks"], plan["pairs"], plan["rows"], plan["cols"]) == (128, 2, 6, 2)
+    src = SRC.read_text()
+    assert "pairs % aw != 0 || rows % aw != 0" in src and "rows % fw != 0" in src
 
 
 def test_checked_launch_refuses_cpu(models):

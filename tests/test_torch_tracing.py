@@ -219,8 +219,9 @@ def test_vocoder_records_no_span_on_the_cpu_path():
 
 def test_sampler_stamps_only_while_a_profiler_records(monkeypatch):
     """wavenet_generate's CUDA branch, with the launch stubbed: no span and
-    no stamp buffer without a profiler; with one, a ``vocoder.sample`` span
-    and every step stamped up to STAMP_STEPS, reduced onto the span."""
+    no stamp or count buffer without a profiler; with one, a
+    ``vocoder.sample`` span and every step stamped up to STAMP_STEPS, reduced
+    onto the span with the exchange counts."""
     from types import SimpleNamespace
 
     from dvc_tpu_torch.kernels import wavenet_step as ws
@@ -230,7 +231,8 @@ def test_sampler_stamps_only_while_a_profiler_records(monkeypatch):
     def launch(packed, cond, seed, deterministic, checked, stamp_steps):
         asked.append((checked, stamp_steps))
         stamps = torch.arange(stamp_steps * (4 * layers + 4)).reshape(stamp_steps, 4 * layers + 4)
-        return "out", None, stamps if stamp_steps else None
+        counts = torch.tensor([5 * (stamp_steps - 1), stamp_steps])
+        return "out", None, *((stamps, counts) if stamp_steps else (None, None))
     monkeypatch.setattr(ws, "_launch", launch)
     packed = {"cfg": VocoderConfig(**dict(VOC, layers=layers))}
     cond = SimpleNamespace(device=torch.device("cuda"), shape=(1, 3000, 80))
@@ -243,9 +245,11 @@ def test_sampler_stamps_only_while_a_profiler_records(monkeypatch):
     assert asked == [(False, 0), (False, 3000), (False, 1024)]
     whole, capped = by_name("vocoder.sample")
     for rec, steps in ((whole, 3000), (capped, 1024)):
-        want = stamp_cycles(launch(packed, cond, 0, False, False, steps)[2], layers)
+        _, _, stamps, counts = launch(packed, cond, 0, False, False, steps)
+        want = stamp_cycles(stamps, layers, counts)
         assert {k: rec[k] for k in want} == want
         assert want["step_cycles"] == (steps - 1) * (4 * layers + 3)  # step 0 left out
+        assert (want["exchanges"], want["first_read_exchanges"]) == (5 * (steps - 1), steps)
 
 
 def test_stamp_cycles_by_hand():
@@ -262,6 +266,33 @@ def test_stamp_cycles_by_hand():
             s[t, k] = c
     got = stamp_cycles(torch.from_numpy(s), layers)
     assert got == {"barrier_cycles": 3 * 5 * 3, "step_cycles": 3 * (5 * 3 + 6 * 10)}
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+def test_stamp_cycles_reads_the_exchange_waits(layers):
+    """The stamps as the kernel writes them without grid barriers: per
+    layer, phase in ends when its gated is published (4 l + 1), the wait
+    ends when every gated word has arrived (4 l + 2), phase out ends with
+    h or the skip sum published (4 l + 3), the next wait when those words
+    have arrived (4 l + 4, which opens the next phase); then final1's fin
+    (4 L + 1), fin's arrival (4 L + 2), the head (4 L + 3).  Waits of 7
+    cycles on gated, 5 on h, 11 on the skip sum and 13 on fin, phases of
+    20; step 0's weights copy left out; the counts come through as given."""
+    steps, nst = 5, 4 * layers + 4
+    wait = {2: 7, 4: 5, 4 * layers: 11, 4 * layers + 2: 13}
+    s = np.zeros((steps, nst), np.int64)
+    for t in range(steps):
+        c = s[t, 0] = 10_000 * t
+        for k in range(1, nst):
+            is_wait = k % 2 == 0 and k <= 4 * layers + 2
+            c += (wait.get(k, wait[2] if k % 4 == 2 else wait[4]) if is_wait
+                  else 20 + 900 * (t == 0 and k == 1))
+            s[t, k] = c
+    got = stamp_cycles(torch.from_numpy(s), layers, torch.tensor([7 * steps, 3]))
+    per_step_waits = layers * 7 + (layers - 1) * 5 + 11 + 13
+    assert got["barrier_cycles"] == (steps - 1) * per_step_waits
+    assert got["step_cycles"] == (steps - 1) * (per_step_waits + 20 * (2 * layers + 2))
+    assert (got["exchanges"], got["first_read_exchanges"]) == (7 * steps, 3)
 
 
 def reader(name):
@@ -318,8 +349,10 @@ def test_serving_readers_by_hand():
              s("serve.front_end", 4, 9, rid=1), s("serve.front_end", 30, 33, rid=2),
              s("serve.vae", 23, 30), s("serve.reply", 60, 61, rid=1),
              s("serve.reply", 90, 93, rid=2),
-             s("vocoder.sample", 31, 55, barrier_cycles=30, step_cycles=100),
-             s("vocoder.sample", 60, 85, barrier_cycles=50, step_cycles=100),
+             s("vocoder.sample", 31, 55, barrier_cycles=30, step_cycles=100, exchanges=98,
+               first_read_exchanges=9),
+             s("vocoder.sample", 60, 85, barrier_cycles=50, step_cycles=100, exchanges=98,
+               first_read_exchanges=40),
              s("vocoder.sample", 86, 87), s("serve.queue", 2000, 2010, rid=3)]
     rec = {"trace": DeviceTrace(), "trace_window_ns": (0, 1000 * ms), "program_spans": spans}
     assert reader("serve.queue_wait_ms")(rec) == pytest.approx(10.0)
@@ -327,10 +360,17 @@ def test_serving_readers_by_hand():
     assert reader("serve.vae_ms")(rec) == pytest.approx(7.0)
     assert reader("serve.reply_ms")(rec) == pytest.approx(2.0)
     assert reader("sampler.barrier_share")(rec) == pytest.approx(40.0)
+    assert reader("sampler.first_read_share")(rec) == pytest.approx(25.0)
+    old = [dict(x) for x in spans]  # a program whose launches count no exchanges
+    for x in old:
+        x.pop("exchanges", None)
+        x.pop("first_read_exchanges", None)
+    assert reader("sampler.first_read_share")(dict(rec, program_spans=old)) is None
 
 
 @pytest.mark.parametrize("name", ["serve.queue_wait_ms", "serve.front_end_ms", "serve.vae_ms",
                                   "serve.reply_ms", "sampler.barrier_share",
+                                  "sampler.first_read_share",
                                   "train.data_wait_ms", "train.fwd_ms", "train.bwd_ms",
                                   "train.adam_ms", "device.idle.train.input",
                                   "device.idle.train.step", "device.idle.train.epoch_tail"])
