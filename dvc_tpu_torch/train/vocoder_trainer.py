@@ -8,6 +8,12 @@ min(0.9999, (1 + t) / (10 + t)).  One step is eager on the device: cuDNN
 dilated convolutions in exact float32 (TF32 off), as the VAE's train step.
 The saved checkpoint is the EMA trail, in dvc_tpu's msgpack layout, which
 ``convert/vocode.load_vocoder_params`` and dvc_tpu's ``make_vocoder`` read.
+
+While a torch.profiler records, each step records the VAE trainer's spans
+(utils/profiling.py): ``train.data_wait`` (the inline draw of crops and
+their CPU mel), ``train.h2d``, ``train.forward`` (upsampler, WaveNet and
+the MoL NLL), ``train.backward`` (``zero_grad`` and the backward),
+``train.optimizer`` (Adam) and ``train.ema`` (the trail's update).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from dvc_tpu_torch.train.trainer import _step_seed, make_optimizer
 from dvc_tpu_torch.utils import msgpack
 from dvc_tpu_torch.utils.convert import wavenet_tree_from_state_dict
 from dvc_tpu_torch.utils.device import resolve_device, use_exact_float32
+from dvc_tpu_torch.utils.profiling import span
 
 EMA_DECAY = 0.9999
 
@@ -75,13 +82,17 @@ def make_wavenet_step(model: WaveNet, optimizer: torch.optim.Optimizer,
 
     def step(x: torch.Tensor, c: torch.Tensor, t: int,
              generator: torch.Generator | None = None) -> torch.Tensor:
-        y_hat = model(x, c, train=True, generator=generator)
-        loss = discretized_mix_logistic_loss(y_hat[:, :-1], x[:, 1:],
-                                             log_scale_min=cfg.log_scale_min)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        ema_update_(ema, params, t)
+        with span("train.forward"):
+            y_hat = model(x, c, train=True, generator=generator)
+            loss = discretized_mix_logistic_loss(y_hat[:, :-1], x[:, 1:],
+                                                 log_scale_min=cfg.log_scale_min)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("train.optimizer"):
+            optimizer.step()
+        with span("train.ema"):
+            ema_update_(ema, params, t)
         return loss.detach()
 
     return step
@@ -122,8 +133,11 @@ class VocoderTrainer:
         losses = []
         it = iter(batches)
         for i in range(n_steps):
-            x, c = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
-                    for a in next(it))
+            with span("train.data_wait"):
+                batch = next(it)
+            with span("train.h2d"):
+                x, c = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+                        for a in batch)
             losses.append(self.step_on(x, c))
             if i % 50 == 0:
                 logging_func(f"vocoder step {self.step}: nll {losses[-1].item():.4f}")
